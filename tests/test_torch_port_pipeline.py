@@ -1,0 +1,183 @@
+"""The slice as a whole: the port's RegionDiffusion against the JAX
+package's at the tiny configs, on bridged weights and the same numpy
+latents, plus the port's CLI flow.
+
+Plain pass: latents and the capture aggregates; then the rich pass with the
+JAX package's masks, font-size reweighting and colour guidance, to the
+final latents. Both sides float32 on the CPU. Tolerance: 1e-4 relative to
+each array's scale — 13 UNet calls and the PNDM multistep in float32, sums
+in another order (max |d| seen ~2e-6 relative).
+"""
+
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rich_text_to_image_tpu.models import config as C
+from rich_text_to_image_tpu.ops.resize import resize_bicubic as j_resize
+from rich_text_to_image_tpu.pipelines import region_sd as J
+from rich_text_to_image_tpu.utils import richtext
+from rich_text_to_image_tpu.utils import token_maps as j_tm
+from rich_text_to_image_tpu_torch import weights
+from rich_text_to_image_tpu_torch.cli import sample as t_cli
+from rich_text_to_image_tpu_torch.models.clip import CLIPTextModel
+from rich_text_to_image_tpu_torch.models.tokenizer import CLIPTokenizer
+from rich_text_to_image_tpu_torch.models.unet import UNet2DCondition
+from rich_text_to_image_tpu_torch.models.vae import AutoencoderKL
+from rich_text_to_image_tpu_torch.pipelines import region_sd as T
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
+
+STEPS = 12  # 13 plan steps, past agg_start_step
+H, PX = 8, 16  # TINY latent and pixel sizes
+DOC = {"ops": [
+    {"insert": "a "},
+    {"attributes": {"link": "a tall tree"}, "insert": "garden"},
+    {"insert": " with a "},
+    {"attributes": {"color": "#ff0000", "size": "60px"}, "insert": "rose"},
+    {"insert": " bush"},
+]}
+
+
+def _close(got, want, rel=1e-4):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=rel * max(np.abs(want).max(), 1e-6))
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    jp = J.RegionDiffusion.random_init(
+        seed=0, unet_cfg=C.TINY_UNET, vae_cfg=C.TINY_VAE,
+        text_cfg=C.TINY_TEXT, dtype=jnp.float32, agg_start_step=3)
+    tree = lambda p: jax.tree.map(np.asarray, p)
+    tp = T.RegionDiffusion(
+        weights.load_flax(UNet2DCondition(C.TINY_UNET),
+                          tree(jp.unet_params), "unet"),
+        weights.load_flax(AutoencoderKL(C.TINY_VAE),
+                          tree(jp.vae_params), "vae"),
+        weights.load_flax(CLIPTextModel(jp.text_encoder.cfg),
+                          tree(jp.text_params), "text"),
+        CLIPTokenizer.byte_level(), C.TINY_UNET, C.TINY_VAE,
+        agg_start_step=3, device="cpu")
+    return jp, tp
+
+
+@pytest.fixture(scope="module")
+def plain(pipes):
+    """Both plain passes on the same latents: (jax out, port out, inputs)."""
+    jp, tp = pipes
+    parsed = richtext.parse_json(DOC)
+    lat0 = np.random.default_rng(0).standard_normal((1, H, H, 4)).astype(
+        np.float32)
+    emb_j = jp.get_text_embeds([parsed.base_text_prompt], [""])
+    emb_t = tp.get_text_embeds([parsed.base_text_prompt], [""])
+    seg, self_layers, cross_by_res = jp._capture_layout((H, H))
+    plan = jp.scheduler.plan(STEPS)
+    fn = jp._plain_fn((H, H), plan.num_steps, seg, self_layers,
+                      tuple(sorted(cross_by_res.items())))
+    j_out = fn(jp.unet_params, jnp.asarray(lat0), emb_j,
+               J._plan_arrays(plan), jnp.float32(8.5))
+    t_out = tp._plain_loop(torch.from_numpy(lat0), emb_t, STEPS, 8.5)
+    return j_out, t_out, dict(parsed=parsed, lat0=lat0, emb_j=emb_j,
+                              emb_t=emb_t, cross_by_res=cross_by_res,
+                              self_layers=self_layers)
+
+
+def test_text_embeds_match(plain):
+    _, _, d = plain
+    _close(d["emb_t"], d["emb_j"])
+
+
+def test_plain_pass_latents_and_aggregates_match(plain):
+    (j_lat, j_self, j_cross), (t_lat, t_self, t_cross, layers, by_res), d = plain
+    assert layers == d["self_layers"]
+    _close(t_lat, j_lat)
+    _close(t_self, j_self)
+    assert float(t_self.sum()) > 0
+    for (r, _), jc in zip(sorted(by_res.items()), j_cross):
+        assert float(jc.sum()) > 0  # accumulated after agg_start_step
+        _close(t_cross[r], jc)
+
+
+def test_rich_pass_matches_jax(pipes, plain):
+    """produce_latents with the JAX package's masks, font-size reweighting
+    and colour guidance, to the final latents."""
+    jp, tp = pipes
+    (_, j_self, j_cross), _, d = plain
+    parsed = d["parsed"]
+    tok = jp.tokenizer._tokenize
+    prompts, region_ids, base = richtext.get_region_diffusion_input(tok,
+                                                                    parsed)
+    fmt = richtext.get_attention_control_input(tok, base, parsed)
+    fmt, color_ids = richtext.get_gradient_guidance_input(
+        tok, base, parsed, fmt, color_guidance_weight=0.5)
+    assert fmt["word_pos"] is not None and parsed.use_grad_guidance
+    agg = j_tm.AttnAggregates(
+        self_sum=np.asarray(j_self), self_count=len(d["self_layers"]),
+        cross_sums={r: np.asarray(c) for (r, _), c in
+                    zip(sorted(d["cross_by_res"].items()), j_cross)},
+        cross_layer_count=sum(len(v) for v in d["cross_by_res"].values()))
+    seg = dict(segment_threshold=0.25, num_segments=3, n_init=5)
+    cmasks = j_tm.get_token_maps(agg, color_ids[:-1], (H, H), 5, **seg)
+    fmt["color_obj_atten"] = [np.asarray(j_resize(m, (PX, PX)))
+                              for m in cmasks[:-1]]
+    fmt["color_obj_atten_all"] = sum(np.asarray(m) for m in cmasks[:-1])
+    masks = j_tm.get_token_maps(agg, region_ids[:-1], (H, H), 5, **seg)
+    jp.masks = tp.masks = masks
+    spec = dict(guidance_scale=8.5, use_guidance=True,
+                color_guidance_weight=0.5)
+    j_lat = jp.produce_latents(
+        jp.get_text_embeds(prompts, [""]), height=PX, width=PX,
+        num_inference_steps=STEPS, latents=jnp.asarray(d["lat0"]),
+        spec=J.RichControlSpec(**spec), text_format_dict=fmt)
+    t_lat = tp.produce_latents(
+        tp.get_text_embeds(prompts, [""]), height=PX, width=PX,
+        num_inference_steps=STEPS, latents=d["lat0"],
+        spec=T.RichControlSpec(**spec), text_format_dict=fmt)
+    _close(t_lat, j_lat)
+
+
+def test_injection_raises(pipes):
+    _, tp = pipes
+    tp.masks = [np.ones((1, H, H), np.float32)]
+    with pytest.raises(NotImplementedError):
+        tp.prompt_to_img(["a cat"], height=PX, width=PX,
+                         num_inference_steps=2, inject_selfattn=0.3)
+    with pytest.raises(NotImplementedError):
+        tp.produce_latents(tp.get_text_embeds(["a cat"]), height=PX,
+                           width=PX, num_inference_steps=2,
+                           spec=T.RichControlSpec(inject_background=0.3))
+
+
+def test_cli_flow_runs_on_cpu(pipes, tmp_path):
+    """The CLI's run_sample at the tiny config: images of the right shape,
+    written as PNG."""
+    _, tp = pipes
+    text = json.dumps(DOC)
+    args = t_cli.make_parser().parse_args(
+        ["--run_dir", str(tmp_path), "--sample_steps", "4", "--device", "cpu",
+         "--rich_text_json", text, "--num_segments", "3"])
+    t_cli.check_args(args)
+    param = {"text_input": json.loads(text), "height": PX, "width": PX,
+             "guidance_weight": 8.5, "steps": 4, "noise_index": 1,
+             "negative_prompt": ""}
+    plain_img, rich_img, seconds = t_cli.run_sample(tp, args, param)
+    assert plain_img.shape == rich_img.shape == (1, PX, PX, 3)
+    assert plain_img.dtype == np.uint8
+    assert set(seconds) == {"plain_pass", "token_maps", "rich_pass"}
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "seed1_plain.png", "seed1_rich.png"]
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "SDXL"], ["--scheduler", "euler"], ["--inject_selfattn", "0.3"],
+    ["--encoder_reuse", "2"], ["--bf16_guidance"], ["--guidance_downsample", "2"],
+    ["--mesh", "auto"], ["--inject_background", "0.3"], ["--save_attn"],
+])
+def test_cli_rejects_unported_flags(argv):
+    with pytest.raises(SystemExit):
+        t_cli.check_args(t_cli.make_parser().parse_args(argv))
