@@ -4,9 +4,12 @@
     python -m rich_text_to_image_tpu_torch.cli.sample --random_weights
 
 Plain pass with attention capture, token maps, then the rich pass with
-region compositing, font-size reweighting and colour guidance. Images are
-written as PNG. Flags of the JAX CLI that this port does not cover yet exit
-with a message naming them.
+region compositing, font-size reweighting, colour guidance and, with
+``--inject_selfattn`` / ``--inject_background`` together with
+``--no_ref_precompute``, self-attention and background injection through
+the in-batch flow. ``--height`` / ``--width`` take any multiple of 64
+(768x768, 512x768, ...). Images are written as PNG. Flags of the JAX CLI
+that this port does not cover yet exit with a message naming them.
 """
 
 from __future__ import annotations
@@ -122,9 +125,8 @@ def run_sample(model, args, param, save=True):
 # flags of the JAX CLI outside this port's slice, with the value that
 # means "off"
 _NOT_PORTED = {
-    "inject_selfattn": 0.0, "inject_background": 0.0, "encoder_reuse": 1,
-    "bf16_guidance": False, "guidance_downsample": 1, "mesh": None,
-    "bf16_vae": False, "save_attn": False, "no_ref_precompute": False,
+    "encoder_reuse": 1, "bf16_guidance": False, "guidance_downsample": 1,
+    "mesh": None, "bf16_vae": False, "save_attn": False,
     "encoder_schedule": "early",
 }
 
@@ -137,13 +139,21 @@ def check_args(args) -> None:
     if args.scheduler not in (None, "pndm"):
         raise SystemExit(f"--scheduler {args.scheduler}: only pndm is ported "
                          "yet (ROADMAP.md, Queue 1)")
+    if ((args.inject_selfattn > 0 or args.inject_background > 0)
+            and not args.no_ref_precompute):
+        # without the flag the JAX CLI runs the refer-precompute flow, a
+        # different computation from the in-batch one that is ported
+        raise SystemExit(
+            "--inject_selfattn / --inject_background: the refer-precompute "
+            "flow is not ported to PyTorch yet (ROADMAP.md, Queue 1); add "
+            "--no_ref_precompute to run the in-batch flow")
     on = [f"--{k}" for k, off in _NOT_PORTED.items()
           if getattr(args, k) != off]
     if on:
         raise SystemExit(
-            f"{' '.join(on)}: not ported to PyTorch yet (injection, turbo "
-            "knobs, meshes and the segmentation/attention figures are later "
-            "slices; ROADMAP.md, Queue 1)")
+            f"{' '.join(on)}: not ported to PyTorch yet (turbo knobs, meshes "
+            "and the segmentation/attention figures are later slices; "
+            "ROADMAP.md, Queue 1)")
 
 
 def make_parser():

@@ -1,7 +1,7 @@
 // Self-attention kernels for Hopper (sm_90a), bf16 in, fp32 softmax.
 //
-// Replaces the three Pallas kernels on the SD-1.5 main path of the JAX
-// package (rich_text_to_image_tpu/ops/attention.py):
+// Replaces the three full-row Pallas kernels of the JAX package
+// (rich_text_to_image_tpu/ops/attention.py):
 //   * attn_fwd_kernel  <- _full_kernel   (SD 64^2 self-attention, d=40)
 //                      <- _full_kernel_t (SD 32^2 self-attention, d=80)
 //   * attn_avgp_kernel <- _full_kernel_avgp (the 32^2 capture layers: the
@@ -29,7 +29,8 @@
 //   * K1 and K2 compute the same function: the TPU's transposed layout
 //     answered a 128-lane padding cost that Hopper does not have, so one
 //     kernel (one CTA of 4 warps per 64-row Q tile of one (batch, head)),
-//     templated on the padded head dim (40 -> 48, 80 -> 80), serves both;
+//     templated on the padded head dim (40 -> 48, 80 -> 80; 160 for the
+//     1280-channel level at sizes above 512^2), serves both;
 //   * the capture kernel is deterministic, with no atomics: one CTA owns
 //     (batch, 16-row Q tile), and its 4 warps take 4 heads at a time, each
 //     with its own K/V tiles. Per head a first KV pass finds each row's max
@@ -40,67 +41,15 @@
 // This is a simple version: no TMA, no wgmma, no pipelining of the tile
 // loads. Its times are in PERF.md.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int BN = 64;        // keys per KV tile
+using namespace rtt;
+
 constexpr int NWARPS = 4;     // warps per CTA, each owning 16 query rows
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int BM = 16 * NWARPS;  // query rows per attn_fwd CTA
-constexpr int PAD = 8;        // shared-memory row padding, in elements
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two transposed 8x8 bf16 matrices from shared memory: lanes 0-7 give the
-// row addresses of the first, lanes 8-15 of the second. Lane t receives
-// rows 2(t%4), 2(t%4)+1 of column t/4: the B fragment of mma16816 for a
-// [k][n] row-major tile.
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& r0, uint32_t& r1,
-                                              const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(a));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Rows [row0, row0 + ROWS) of one (batch, head) into a [ROWS][DP + PAD]
-// tile, by NT threads of which this is thread t; rows >= n_valid and
-// head-dim columns >= d are zero-filled.
-template <int DP, int ROWS, int NT>
-__device__ __forceinline__ void load_tile(bf16 (*dst)[DP + PAD],
-                                          const bf16* src, long long stride_s,
-                                          int row0, int n_valid, int d, int t) {
-  constexpr int CH = DP / 8;  // 16-byte chunks per row
-  for (int idx = t; idx < ROWS * CH; idx += NT) {
-    const int r = idx / CH, c = (idx % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_valid && c < d)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride_s + c);
-    *reinterpret_cast<uint4*>(&dst[r][c]) = val;
-  }
-}
 
 // Scores of this warp's 16 rows against the 64 keys in Ks, scaled to log2
 // units, with keys >= kv_len masked to -inf.
@@ -126,20 +75,6 @@ __device__ __forceinline__ void tile_scores(float s[BN / 8][4],
   }
 }
 
-template <int DP>
-__device__ __forceinline__ void load_q_frags(uint32_t qf[DP / 16][4],
-                                             const bf16 (*Qs)[DP + PAD],
-                                             int r, int tig) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    qf[kk][0] = ld32(&Qs[r][c]);
-    qf[kk][1] = ld32(&Qs[r + 8][c]);
-    qf[kk][2] = ld32(&Qs[r][c + 8]);
-    qf[kk][3] = ld32(&Qs[r + 8][c + 8]);
-  }
-}
-
 // o += p . V for this warp's rows; p given as score-layout fragments, V as
 // a [64][DP + PAD] row-major tile.
 template <int DP>
@@ -162,39 +97,6 @@ __device__ __forceinline__ void tile_pv(float o[DP / 8][4],
   }
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Rows r0 (= o[.][0..1]) and r0 + 8 (= o[.][2..3]) of O, times inv0 / inv1.
-template <int DP>
-__device__ __forceinline__ void store_out(bf16* o_base, long long stride_s,
-                                          const float o[DP / 8][4], int r0,
-                                          int sq, int d, int tig, float inv0,
-                                          float inv1) {
-#pragma unroll
-  for (int db = 0; db < DP / 8; ++db) {
-    const int c = db * 8 + tig * 2;
-    if (c >= d) continue;
-    if (r0 < sq)
-      *reinterpret_cast<uint32_t*>(o_base + (long long)r0 * stride_s + c) =
-          pack_bf16(o[db][0] * inv0, o[db][1] * inv0);
-    if (r0 + 8 < sq)
-      *reinterpret_cast<uint32_t*>(o_base + (long long)(r0 + 8) * stride_s + c) =
-          pack_bf16(o[db][2] * inv1, o[db][3] * inv1);
-  }
-}
-
-struct Strides {
-  long long b, h, s;
-};
-
 // softmax(Q K^T * scale) V for one 64-row Q tile of one (batch, head).
 template <int DP>
 __global__ void __launch_bounds__(NTHREADS)
@@ -202,9 +104,13 @@ __global__ void __launch_bounds__(NTHREADS)
                     const bf16* __restrict__ v, bf16* __restrict__ o, int H,
                     int sq, int skv, int d, Strides qs, Strides ks, Strides vs,
                     Strides os, float scale_log2) {
-  __shared__ __align__(16) bf16 Qs[BM][DP + PAD];
+  // Q lives in shared memory only until its fragments are in registers, so
+  // it shares the K tile's room: at DP = 160 three tiles would pass the 48 KB
+  // a block may declare statically
+  static_assert(BM == BN, "the Q tile borrows the K tile");
   __shared__ __align__(16) bf16 Ks[BN][DP + PAD];
   __shared__ __align__(16) bf16 Vs[BN][DP + PAD];
+  bf16 (*Qs)[DP + PAD] = Ks;
 
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int q0 = blockIdx.x * BM;
@@ -434,18 +340,9 @@ cudaError_t launch_avgp(const bf16* q, const bf16* k, const bf16* v, bf16* o,
 
 // C interface (loaded with ctypes). Tensors are bf16 with a contiguous last
 // dim; strides are in elements for the batch, head and sequence dims. The
-// head dim d must be a multiple of 8 and at most 96; the wrapper checks.
+// head dim d must be a multiple of 8 and at most 160 (RTT_DISPATCH in
+// common.cuh); the wrapper checks.
 // Each entry returns cudaGetLastError() after the launch (0 = success).
-#define RTT_DISPATCH(FN, ...)                                        \
-  switch ((d + 15) / 16 * 16) {                                      \
-    case 32: return (int)FN<32>(__VA_ARGS__);                        \
-    case 48: return (int)FN<48>(__VA_ARGS__);                        \
-    case 64: return (int)FN<64>(__VA_ARGS__);                        \
-    case 80: return (int)FN<80>(__VA_ARGS__);                        \
-    case 96: return (int)FN<96>(__VA_ARGS__);                        \
-    default: return (int)cudaErrorInvalidValue;                      \
-  }
-
 extern "C" int rtt_attn_fwd(const void* q, const void* k, const void* v,
                             void* o, int B, int H, int sq, int skv, int d,
                             long long qsb, long long qsh, long long qss,

@@ -3,7 +3,8 @@
 Counterpart of ``rich_text_to_image_tpu/models/unet.py``. The forward
 returns ``(eps, aux)``: ``capture`` (:class:`CaptureSpec`) names the layers
 whose head-averaged attention probabilities go into ``aux``, and ``controls``
-(:class:`UNetControls`) carries the font-size token weights. Layers keep the
+(:class:`UNetControls`) carries the font-size token weights and the
+self-attention / resnet-feature injection. Layers keep the
 reference's registry names (``down_blocks.1.attentions.0.transformer_blocks.0
 .attn1`` ...) as ``layer_name``, and modules carry diffusers' parameter names
 so that a diffusers state dict loads into them as it is.
@@ -12,7 +13,9 @@ Public layout is NHWC (latents in and eps out), as in the JAX package;
 inside, activations are NCHW. Self-attention dispatch follows the JAX
 package: capture layers take the fused head-average kernel where its shape
 gate admits them, other self-attention at S >= 512 the flash kernel, and the
-rest the plain path.
+rest the plain path. The 3×3 stride-1 convolutions go through the
+hand-written convolution kernel when ``ops.conv.enable_kernel_conv()`` is on
+and their shape qualifies, and through ``F.conv2d`` otherwise.
 
 Parity traps kept from the JAX package (not diffusers' defaults): the
 feed-forward's GELU is the tanh approximation (flax ``nn.gelu``), the
@@ -31,19 +34,29 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import attention as attn_ops
+from ..ops import conv as conv_ops
 from .config import UNetConfig
 
 
 # ------------------------------------------------------------------ controls
 @dataclasses.dataclass
 class UNetControls:
-    """Control inputs (None = off). Only the font-size token weights are in
-    this slice of the port; the injection and prompt-to-prompt controls of
-    the JAX package raise ``NotImplementedError`` when given."""
+    """Control inputs (None = off).
+
+    ``inject_gate`` is a Python bool or a bool tensor: where it is false the
+    injected values give way to the layer's own. ``inject_qk`` maps attn1
+    layer names to a (Q, K) pair, ``[B,H,S,hd]`` or pre-split ``[B,S,C]``,
+    and ``inject_resnet`` resnet names to a pre-residual feature
+    ``[B,h,w,C]``; with ``inject_dst = (d0, d1)`` and no ``inject_src`` they
+    go into rows d0:d1 only, else into every row. With ``inject_src`` set,
+    rows d0:d1 take row ``inject_src``'s own (Q, K) at every attn1 layer and
+    its feature at :data:`INJECT_RESNET_NAME`, inside one forward.
+    The prompt-to-prompt controls (``inject_cross``, ``cross_mapper``,
+    ``cross_mix``) raise ``NotImplementedError`` when given."""
 
     token_weights: Optional[torch.Tensor] = None  # (77,) or (B,77) |font size|
     token_signs: Optional[torch.Tensor] = None
-    inject_gate: Optional[torch.Tensor] = None
+    inject_gate: Optional[object] = None  # bool or bool tensor
     inject_qk: Optional[dict] = None
     inject_resnet: Optional[dict] = None
     inject_cross: Optional[dict] = None
@@ -53,21 +66,23 @@ class UNetControls:
     inject_dst: Optional[tuple] = None
 
     def check_supported(self) -> None:
-        for name in ("inject_gate", "inject_qk", "inject_resnet",
-                     "inject_cross", "cross_mapper", "cross_mix",
-                     "inject_src", "inject_dst"):
+        for name in ("inject_cross", "cross_mapper", "cross_mix"):
             if getattr(self, name) is not None:
                 raise NotImplementedError(
-                    f"UNetControls.{name}: attention/feature injection and "
-                    "prompt-to-prompt editing are not ported yet (ROADMAP.md, "
-                    "Queue 1)")
+                    f"UNetControls.{name}: prompt-to-prompt editing is not "
+                    "ported yet (ROADMAP.md, Queue 1)")
+        if self.inject_src is not None and self.inject_dst is None:
+            raise ValueError("UNetControls.inject_src needs inject_dst")
 
 
 @dataclasses.dataclass(frozen=True)
 class CaptureSpec:
     """Capture requests: attn1 / attn2 layer names whose head-averaged
-    probabilities go into ``aux``. ``qk``, ``resnet`` and ``cross_full``
-    (injection and prompt-to-prompt captures) are not ported yet."""
+    probabilities go into ``aux``; ``qk`` puts every attn1 layer's own
+    (Q, K) ``[B,H,S,hd]`` under ``aux["self_qk"]`` and ``resnet`` the named
+    resnets' pre-residual features ``[B,h,w,C]`` under
+    ``aux["resnet_hidden"]``. ``cross_full`` (the prompt-to-prompt capture)
+    is not ported yet."""
 
     self_probs: frozenset = frozenset()
     cross_probs: frozenset = frozenset()
@@ -76,14 +91,29 @@ class CaptureSpec:
     cross_full: bool = False
 
     def check_supported(self) -> None:
-        if self.qk or self.resnet or self.cross_full:
+        if self.cross_full:
             raise NotImplementedError(
-                "CaptureSpec qk/resnet/cross_full: injection and "
-                "prompt-to-prompt captures are not ported yet (ROADMAP.md, "
-                "Queue 1)")
+                "CaptureSpec.cross_full: the prompt-to-prompt capture is not "
+                "ported yet (ROADMAP.md, Queue 1)")
 
 
 EMPTY_CAPTURE = CaptureSpec()
+# The resnet whose pre-residual feature the reference injects (16² for SD).
+INJECT_RESNET_NAME = "up_blocks.1.resnets.1"
+
+
+def _gated(gate, new, old):
+    """``new`` where the gate is open (None = always), else ``old``."""
+    if gate is None:
+        return new
+    if isinstance(gate, bool):
+        return new if gate else old
+    return torch.where(gate, new, old)
+
+
+def _into_rows(t, rows, d0: int, d1: int):
+    """``t`` with rows d0:d1 replaced (a new tensor; ``t`` is left alone)."""
+    return torch.cat([t[:d0], rows, t[d1:]], dim=0)
 
 
 def _use_flash(seq: int) -> bool:
@@ -120,12 +150,60 @@ class TimestepEmbedding(nn.Module):
         return self.linear_2(F.silu(self.linear_1(x)))
 
 
+class Conv3x3(nn.Conv2d):
+    """A 3×3 stride-1 pad-1 ``nn.Conv2d`` (same parameters and names) that
+    takes the hand-written kernel (``ops/conv.py``) when the gate is on and
+    the shape qualifies, and ``F.conv2d`` otherwise. With the gate on a
+    failed build or launch raises; nothing falls back. On a CPU tensor the
+    op runs its plain version, as the attention ops do.
+
+    The kernel has no backward pass: with the gate on, a forward that would
+    record a gradient (autograd enabled and the input or a parameter
+    requiring one) raises instead of returning a tensor cut off from the
+    graph. The pipeline's UNet calls all run under ``torch.no_grad()``.
+
+    The kernel works channels-last on weights repacked to ``[3,3,C,O]``;
+    the repack is made once per weight tensor and kept on the module. The
+    result comes back as an NCHW view of channels-last memory, which the
+    following GroupNorm and convolutions take as it is."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(in_ch, out_ch, 3, padding=1)
+        self._packed = None  # (key of the weight it was made from, tensor)
+
+    def packed_weight(self) -> torch.Tensor:
+        w = self.weight
+        key = (w.data_ptr(), w._version, w.dtype, w.device)
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, conv_ops.pack_weight(w.detach()))
+        return self._packed[1]
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        if not (conv_ops.kernel_conv_enabled()
+                and conv_ops.conv3x3_supported(
+                    (B, H, W, C), (3, 3, C, self.out_channels))):
+            return super().forward(x)
+        if torch.is_grad_enabled() and (
+                x.requires_grad or self.weight.requires_grad
+                or self.bias.requires_grad):
+            raise RuntimeError(
+                "Conv3x3: the convolution kernel has no backward pass; run "
+                "the forward under torch.no_grad() or turn the gate off "
+                "(ops.conv.enable_kernel_conv(False))")
+        x_cl = x.permute(0, 2, 3, 1).contiguous()  # no copy if channels-last
+        y = conv_ops.conv3x3(x_cl, self.packed_weight(), self.bias)
+        return y.permute(0, 3, 1, 2)
+
+
 class _Conv(nn.Module):
-    """A module holding one conv as ``.conv`` (diffusers' down/upsamplers)."""
+    """A module holding one 3×3 conv as ``.conv`` (diffusers' down- and
+    upsamplers); the stride-2 one never qualifies for the kernel."""
 
     def __init__(self, ch: int, stride: int):
         super().__init__()
-        self.conv = nn.Conv2d(ch, ch, 3, stride=stride, padding=1)
+        self.conv = (Conv3x3(ch, ch) if stride == 1
+                     else nn.Conv2d(ch, ch, 3, stride=stride, padding=1))
 
     def forward(self, x):
         return self.conv(x)
@@ -133,25 +211,54 @@ class _Conv(nn.Module):
 
 # -------------------------------------------------------------------- resnet
 class ResnetBlock2D(nn.Module):
-    """GN-SiLU-Conv x2 plus the time projection (NCHW)."""
+    """GN-SiLU-Conv x2 plus the time projection (NCHW). The pre-residual
+    branch is what ``CaptureSpec.resnet`` captures and what the injection
+    controls replace."""
 
-    def __init__(self, in_ch: int, out_ch: int, temb_dim: int, groups: int):
+    def __init__(self, in_ch: int, out_ch: int, temb_dim: int, groups: int,
+                 layer_name: str = ""):
         super().__init__()
+        self.layer_name = layer_name
         self.norm1 = nn.GroupNorm(groups, in_ch, eps=1e-5)
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv1 = Conv3x3(in_ch, out_ch)
         self.time_emb_proj = nn.Linear(temb_dim, out_ch)
         self.norm2 = nn.GroupNorm(groups, out_ch, eps=1e-5)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv2 = Conv3x3(out_ch, out_ch)
         self.conv_shortcut = (nn.Conv2d(in_ch, out_ch, 1)
                               if in_ch != out_ch else None)
 
-    def forward(self, x, temb):
+    def _injected(self, h, controls: UNetControls | None):
+        if controls is None:
+            return h
+        name, gate = self.layer_name, controls.inject_gate
+        if controls.inject_resnet is not None and name in controls.inject_resnet:
+            inj = controls.inject_resnet[name].to(h.dtype).permute(0, 3, 1, 2)
+            if controls.inject_dst is not None and controls.inject_src is None:
+                # an explicit feature into a row range only
+                d0, d1 = controls.inject_dst
+                hs = _gated(gate, inj.expand(d1 - d0, *h.shape[1:]), h[d0:d1])
+                return _into_rows(h, hs, d0, d1)
+            return _gated(gate, inj.expand_as(h), h)
+        if controls.inject_src is not None and name == INJECT_RESNET_NAME:
+            # in-batch: rows d0:d1 take row inject_src's feature
+            s0 = controls.inject_src
+            d0, d1 = controls.inject_dst
+            hs = _gated(gate, h[s0:s0 + 1].expand(d1 - d0, *h.shape[1:]),
+                        h[d0:d1])
+            return _into_rows(h, hs, d0, d1)
+        return h
+
+    def forward(self, x, temb, controls: UNetControls | None = None,
+                capture: CaptureSpec = EMPTY_CAPTURE, aux: dict | None = None):
         h = self.conv1(F.silu(self.norm1(x)))
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
         h = self.conv2(F.silu(self.norm2(h)))
+        if aux is not None and self.layer_name in capture.resnet:
+            aux.setdefault("resnet_hidden", {})[self.layer_name] = (
+                h.permute(0, 2, 3, 1))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
-        return x + h
+        return x + self._injected(h, controls)
 
 
 # ----------------------------------------------------------------- attention
@@ -169,6 +276,41 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(kv, dim, bias=False)
         self.to_v = nn.Linear(kv, dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
+
+    def _injected_qk(self, q, k, controls: UNetControls | None):
+        """The (Q, K) this self-attention layer attends with: its own, or
+        under the injection controls another row's or a stored pair."""
+        if controls is None:
+            return q, k
+        own_q, own_k = q, k
+        gate = controls.inject_gate
+        inj = (controls.inject_qk.get(self.layer_name)
+               if controls.inject_qk is not None else None)
+        if inj is not None:
+            qi, ki = inj
+            if qi.dim() == 3:  # pre-split [B, S, C] storage layout
+                hd = self.dim // self.heads
+                qi, ki = (t.view(t.shape[0], t.shape[1], self.heads, hd)
+                          .transpose(1, 2) for t in (qi, ki))
+            qi, ki = qi.to(q.dtype), ki.to(k.dtype)
+            if controls.inject_dst is not None and controls.inject_src is None:
+                # an explicit (Q, K) into a row range only
+                d0, d1 = controls.inject_dst
+                q, k = (_into_rows(t, _gated(
+                    gate, ti.expand(d1 - d0, *t.shape[1:]), t[d0:d1]), d0, d1)
+                    for t, ti in ((q, qi), (k, ki)))
+            else:
+                # one reference row broadcast over the batch
+                q, k = (_gated(gate, ti.expand_as(t), t)
+                        for t, ti in ((q, qi), (k, ki)))
+        if controls.inject_src is not None:
+            # in-batch: rows d0:d1 attend with row inject_src's own (Q, K)
+            s0 = controls.inject_src
+            d0, d1 = controls.inject_dst
+            q, k = (_into_rows(t, _gated(
+                gate, src[s0:s0 + 1].expand(d1 - d0, *t.shape[1:]),
+                t[d0:d1]), d0, d1) for t, src in ((q, own_q), (k, own_k)))
+        return q, k
 
     def forward(self, x, context=None, controls: UNetControls | None = None,
                 capture: CaptureSpec = EMPTY_CAPTURE, aux: dict | None = None):
@@ -194,20 +336,24 @@ class Attention(nn.Module):
             if aux is not None and name in capture.cross_probs:
                 aux.setdefault("cross_probs", {})[name] = probs.mean(dim=1)
         else:
+            qu, ku = self._injected_qk(q, k, controls)
             if name in capture.self_probs:
                 # capture layers use only the head average
                 if (_use_flash(S) and attn_ops.avg_probs_kernel_fits(
-                        S, k.shape[2], hd)):
-                    o, pavg = attn_ops.flash_attention_avg_probs(q, k, v, scale)
+                        S, ku.shape[2], hd)):
+                    o, pavg = attn_ops.flash_attention_avg_probs(qu, ku, v,
+                                                                 scale)
                 else:
-                    o, probs = attn_ops.attention_with_probs(q, k, v, scale)
+                    o, probs = attn_ops.attention_with_probs(qu, ku, v, scale)
                     pavg = probs.mean(dim=1)
                 if aux is not None:
                     aux.setdefault("self_probs", {})[name] = pavg
             elif _use_flash(S):
-                o = attn_ops.flash_attention(q, k, v, scale)
+                o = attn_ops.flash_attention(qu, ku, v, scale)
             else:
-                o = attn_ops.cross_attention(q, k, v, scale)
+                o = attn_ops.cross_attention(qu, ku, v, scale)
+            if capture.qk and aux is not None:
+                aux.setdefault("self_qk", {})[name] = (q, k)
         o = o.transpose(1, 2).reshape(B, S, self.dim)
         return self.to_out[0](o)
 
@@ -295,7 +441,8 @@ class DownBlock(nn.Module):
         n = cfg.layers_per_block
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_ch if i == 0 else out_ch, out_ch, temb,
-                          cfg.norm_num_groups) for i in range(n)])
+                          cfg.norm_num_groups, f"{layer_name}.resnets.{i}")
+            for i in range(n)])
         self.attentions = nn.ModuleList([
             Transformer2DModel(cfg, heads, out_ch, depth,
                                f"{layer_name}.attentions.{i}")
@@ -306,7 +453,7 @@ class DownBlock(nn.Module):
     def forward(self, x, temb, context, controls, capture, aux):
         skips = []
         for i, res in enumerate(self.resnets):
-            x = res(x, temb)
+            x = res(x, temb, controls, capture, aux)
             if self.attentions is not None:
                 x = self.attentions[i](x, context, controls, capture, aux)
             skips.append(x)
@@ -326,7 +473,8 @@ class UpBlock(nn.Module):
         n = cfg.layers_per_block + 1
         self.resnets = nn.ModuleList([
             ResnetBlock2D((prev_ch if i == 0 else out_ch) + skip_chs[i],
-                          out_ch, temb, cfg.norm_num_groups)
+                          out_ch, temb, cfg.norm_num_groups,
+                          f"{layer_name}.resnets.{i}")
             for i in range(n)])
         self.attentions = nn.ModuleList([
             Transformer2DModel(cfg, heads, out_ch, depth,
@@ -337,7 +485,8 @@ class UpBlock(nn.Module):
 
     def forward(self, x, skips, temb, context, controls, capture, aux):
         for i, res in enumerate(self.resnets):
-            x = res(torch.cat([x, skips.pop()], dim=1), temb)
+            x = res(torch.cat([x, skips.pop()], dim=1), temb, controls,
+                    capture, aux)
             if self.attentions is not None:
                 x = self.attentions[i](x, context, controls, capture, aux)
         if self.upsamplers is not None:
@@ -351,14 +500,15 @@ class MidBlock(nn.Module):
                  depth: int):
         super().__init__()
         self.resnets = nn.ModuleList([
-            ResnetBlock2D(ch, ch, temb, cfg.norm_num_groups) for _ in range(2)])
+            ResnetBlock2D(ch, ch, temb, cfg.norm_num_groups,
+                          f"mid_block.resnets.{i}") for i in range(2)])
         self.attentions = nn.ModuleList([
             Transformer2DModel(cfg, heads, ch, depth, "mid_block.attentions.0")])
 
     def forward(self, x, temb, context, controls, capture, aux):
-        x = self.resnets[0](x, temb)
+        x = self.resnets[0](x, temb, controls, capture, aux)
         x = self.attentions[0](x, context, controls, capture, aux)
-        return self.resnets[1](x, temb)
+        return self.resnets[1](x, temb, controls, capture, aux)
 
 
 # ---------------------------------------------------------------------- UNet

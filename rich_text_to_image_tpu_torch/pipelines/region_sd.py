@@ -13,8 +13,11 @@ Counterpart of ``rich_text_to_image_tpu/pipelines/region_sd.py``. Each JAX
     guidance through the gradient of the VAE decode
     (``torch.autograd.grad``).
 
-Self-attention injection (``inject_selfattn``), background injection and the
-turbo knobs of the JAX package are not ported yet and raise.
+Self-attention and background injection run the in-batch flow (the JAX
+package's ``_rich_fn`` with ``run_reference``): a second, reference
+trajectory is denoised beside the rich one, in one UNet forward of R+4 rows
+per step. The refer-precompute flow (``ref_cache``) and the turbo knobs of
+the JAX package are not ported yet.
 
 Precision policy (the JAX package's, docs/ARCHITECTURE.md): a bfloat16 UNet
 with float32 softmax statistics, a float32 VAE and CLIP text encoder, and
@@ -66,13 +69,6 @@ class RichControlSpec:
     use_guidance: bool = False
     guidance_start_step: int = 999
     color_guidance_weight: float = 1.0
-
-    def check_supported(self) -> None:
-        if self.inject_selfattn > 0 or self.inject_background > 0:
-            raise NotImplementedError(
-                "inject_selfattn / inject_background > 0: the rich pass with "
-                "a reference trajectory is not ported yet (ROADMAP.md, "
-                "Queue 1)")
 
 
 class RegionDiffusion:
@@ -167,8 +163,20 @@ class RegionDiffusion:
 
     # ------------------------------------------------------- capture layout
     def _capture_layout(self, latent_hw):
+        """(segmentation resolution, the attn1 layers captured at it,
+        {resolution: attn2 layers}); resolutions count rows of the latent
+        grid, and a level's width follows the latent's aspect.
+
+        The segmentation runs at the reference's 32 rows where the UNet has
+        a level there (latents of 64 or 128 rows), as in the JAX package.
+        Where it has none (96 rows: levels at 96, 48, 24, 12) the JAX rule
+        names no layer and its self-attention sum stays zero; here the next
+        finer level is taken (48 rows), so that other sizes segment too."""
         res_map = attn_layer_resolutions(self.unet_cfg, latent_hw)
-        seg_res = min(SEG_RESOLUTION, latent_hw[0] // 2)
+        want = min(SEG_RESOLUTION, latent_hw[0] // 2)
+        levels = sorted(set(res_map.get(n) for n in SelfAttentionLayers)
+                        - {None})
+        seg_res = next((r for r in levels if r >= want), want)
         self_layers = tuple(
             n for n in SelfAttentionLayers if res_map.get(n) == seg_res)
         cross_by_res: dict[int, tuple[str, ...]] = {}
@@ -217,9 +225,12 @@ class RegionDiffusion:
         capture_last = CaptureSpec(self_probs=frozenset(self_layers),
                                    cross_probs=cross_names)
         capture_cross = CaptureSpec(cross_probs=cross_names)
-        self_sum = torch.zeros((seg_res ** 2, seg_res ** 2),
+        def tokens(r):  # of a level with r rows, at the latent's aspect
+            return r * (r * w // h)
+
+        self_sum = torch.zeros((tokens(seg_res), tokens(seg_res)),
                                dtype=torch.float32, device=self.device)
-        cross = {r: torch.zeros((r * r, 77), dtype=torch.float32,
+        cross = {r: torch.zeros((tokens(r), 77), dtype=torch.float32,
                                 device=self.device)
                  for r in sorted(cross_by_res)}
         st = sched.init_state(lat.shape, self.device)
@@ -268,7 +279,6 @@ class RegionDiffusion:
             color_guidance_weight=text_format_dict.get(
                 "color_guidance_weight", 1.0),
         )
-        spec.check_supported()
         embeds = self.get_text_embeds(list(prompts), negative_prompts)
         lat = self.produce_latents(
             embeds, height=height, width=width,
@@ -283,8 +293,17 @@ class RegionDiffusion:
                         text_format_dict: Optional[dict] = None,
                         seed: int = 0) -> torch.Tensor:
         """The rich loop on [uncond, spans..., base] embeddings; returns the
-        final latent [1, h, w, 4] float32."""
-        spec.check_supported()
+        final latent [1, h, w, 4] float32.
+
+        With ``inject_selfattn`` or ``inject_background`` above 0 a
+        reference trajectory (the plain CFG denoising of the base prompt
+        from the same latent) runs beside the rich one: each step is one
+        forward of [uncond, base, ref_uncond, ref_cond, spans...] in which
+        the span rows take the ref_cond row's (Q, K) at every
+        self-attention and its feature at the injected resnet while the
+        step's timestep is above ``(1 - inject_selfattn) * 1000``; at step
+        ``int(inject_background * S)`` the background region of the rich
+        latent is replaced by the reference's."""
         fmt = dict(text_format_dict or {})
         dev = self.device
         h, w = height // self.vae_scale_factor, width // self.vae_scale_factor
@@ -297,23 +316,33 @@ class RegionDiffusion:
         sched = self.scheduler
         plan = sched.plan(num_inference_steps)
         S = plan.num_steps
+        # per-step host gates (all static; region_diffusion.py:104-105)
+        inject_gates = plan.timesteps.astype(np.float64) > (
+            (1 - spec.inject_selfattn) * 1000)
+        bg_step = int(spec.inject_background * S)
+        run_reference = spec.inject_selfattn > 0 or spec.inject_background > 0
         guidance_gates = ((plan.timesteps.astype(np.int64)
                            < spec.guidance_start_step) & spec.use_guidance)
         alpha_raw = sched.alphas_cumprod[plan.timesteps].astype(np.float32)
 
         # font-size reweighting on the base row only (the reference
-        # registers its font-size hooks around the base-prompt forward)
+        # registers its font-size hooks around the base-prompt forward); the
+        # base row is the last of [uncond, spans..., base] and the second of
+        # the reference flow's [uncond, base, ref_u, ref_c, spans...]
         tw, ts = make_token_weight_vectors(fmt.get("word_pos"),
                                            fmt.get("font_size"))
-        controls = None
+        n_rows = R + 4 if run_reference else R + 2
+        base_row = 1 if run_reference else R + 1
+        tw_rows = ts_rows = None
         if tw is not None:
-            B = n_styles + 1
-            tw_rows = torch.ones((B, 77), dtype=torch.float32, device=dev)
-            ts_rows = torch.ones((B, 77), dtype=torch.float32, device=dev)
-            tw_rows[B - 1] = torch.from_numpy(tw).to(dev)
-            ts_rows[B - 1] = torch.from_numpy(ts).to(dev)
-            controls = UNetControls(token_weights=tw_rows,
-                                    token_signs=ts_rows)
+            tw_rows = torch.ones((n_rows, 77), dtype=torch.float32, device=dev)
+            ts_rows = torch.ones((n_rows, 77), dtype=torch.float32, device=dev)
+            tw_rows[base_row] = torch.from_numpy(tw).to(dev)
+            ts_rows[base_row] = torch.from_numpy(ts).to(dev)
+        emb = text_embeddings
+        if run_reference:
+            emb = torch.cat([emb[0:1], emb[-1:], emb[0:1], emb[-1:],
+                             emb[1:1 + R]], dim=0)
 
         masks = torch.from_numpy(np.stack(
             [np.asarray(m, np.float32).reshape(h, w) for m in self.masks]
@@ -334,16 +363,34 @@ class RegionDiffusion:
                 weight=float(spec.color_guidance_weight),
             )
         g = float(spec.guidance_scale)
-        st = sched.init_state(lat.shape, dev)
+        lat_ref = lat if run_reference else None
+        st = sched.init_state(
+            (2 if run_reference else 1, *lat.shape[1:]), dev)
         for i in range(S):
             t = int(plan.timesteps[i])
             with torch.no_grad():
-                x = torch.cat([lat] * (R + 2), dim=0)
-                eps_all, _ = self.unet(x, t, text_embeddings, controls)
-                eps_all = eps_all.float()
-                eps_uncond = eps_all[0:1]
-                eps_spans = eps_all[1:1 + R]
-                eps_base = eps_all[R + 1:R + 2]
+                if run_reference:
+                    x = torch.cat([lat, lat, lat_ref, lat_ref] + [lat] * R,
+                                  dim=0)
+                    controls = UNetControls(
+                        token_weights=tw_rows, token_signs=ts_rows,
+                        inject_gate=bool(inject_gates[i]),
+                        inject_src=3, inject_dst=(4, 4 + R))
+                    eps_all, _ = self.unet(x, t, emb, controls)
+                    eps_all = eps_all.float()
+                    eps_uncond, eps_base = eps_all[0:1], eps_all[1:2]
+                    eps_spans = eps_all[4:]
+                    eps_ref = eps_all[2:3] + g * (eps_all[3:4] - eps_all[2:3])
+                else:
+                    x = torch.cat([lat] * (R + 2), dim=0)
+                    controls = (UNetControls(token_weights=tw_rows,
+                                             token_signs=ts_rows)
+                                if tw_rows is not None else None)
+                    eps_all, _ = self.unet(x, t, emb, controls)
+                    eps_all = eps_all.float()
+                    eps_uncond = eps_all[0:1]
+                    eps_spans = eps_all[1:1 + R]
+                    eps_base = eps_all[R + 1:R + 2]
                 # composite under the masks (region_diffusion.py:119-128)
                 noise_uncond = eps_uncond * mask_sum[None]
                 noise_text = eps_base * masks[-1][None]
@@ -351,9 +398,20 @@ class RegionDiffusion:
                     noise_text = noise_text + (eps_spans * masks[:-1]).sum(
                         0, keepdim=True)
                 noise = noise_uncond + g * (noise_text - noise_uncond)
-                lat, st = sched.step(plan, i, st, noise, lat)
+                if run_reference:
+                    # both trajectories through one scheduler step
+                    pair, st = sched.step(
+                        plan, i, st, torch.cat([noise, eps_ref], dim=0),
+                        torch.cat([lat, lat_ref], dim=0))
+                    lat, lat_ref = pair[0:1], pair[1:2]
+                else:
+                    lat, st = sched.step(plan, i, st, noise, lat)
             if guidance_gates[i]:
                 lat = self._guided(lat, noise, float(alpha_raw[i]), color)
+            if spec.inject_background > 0 and i == bg_step:
+                # background injection (region_diffusion.py:171-173)
+                bg = masks[-1][None]
+                lat = lat_ref * bg + lat * (1 - bg)
         return lat
 
     def _color_loss(self, lat, noise, a: float, color: dict) -> torch.Tensor:

@@ -61,8 +61,8 @@ def attn_layer_resolutions(cfg: UNetConfig, latent_hw: tuple[int, int]):
     """{layer_name: spatial_resolution} for every attn1/attn2 in the UNet.
 
     Down level l runs at latent/2^l; up level l at latent/2^(L-1-l); mid at
-    the bottom resolution. (Square latents assumed for the map; rectangular
-    inputs map by the height.)
+    the bottom resolution. Resolutions count rows: a rectangular latent maps
+    by its height, and a level's width follows the latent's aspect.
     """
     L = len(cfg.block_out_channels)
     res: dict[str, int] = {}

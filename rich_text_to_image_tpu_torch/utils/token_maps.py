@@ -2,8 +2,9 @@
 
 Counterpart of ``rich_text_to_image_tpu/utils/token_maps.py`` (the
 reference's ``get_token_maps``, utils/attention_utils.py:233-341). The plain
-pass hands over one [1024, 1024] self-attention sum (the 32^2 registry
-layers at the last step) and one cross-attention sum per resolution; the
+pass hands over one [N, N] self-attention sum over the N tokens of the
+segmentation level (the 32^2 registry layers at 512^2, at the last step)
+and one cross-attention sum per resolution; the
 spectral clustering runs on the affinity's device, the rest on the host in
 numpy. Figures (the JAX package's ``utils/viz.py``) are not ported yet.
 """
@@ -26,11 +27,12 @@ SEG_RESOLUTION = 32  # the reference's segmentation grid
 class AttnAggregates:
     """Aggregated attention maps from the plain pass.
 
-    self_sum: [S32, S32] — sum over the 32^2 registry layers of the cond
-        row's head-averaged self-attention probabilities (a tensor, left on
-        the device that produced it).
+    self_sum: [N, N] — sum over the segmentation level's registry layers
+        of the cond row's head-averaged self-attention probabilities (a
+        tensor, left on the device that produced it). N = rows x columns of
+        that level's grid, which has the latent's aspect.
     self_count: number of layers in self_sum.
-    cross_sums: {resolution: [S_r, 77]} — per-resolution sums over
+    cross_sums: {rows r: [r * columns, 77]} — per-resolution sums over
         (registry layers x steps >= agg_start_step) of the cond row's
         head-averaged cross-attention probabilities (numpy).
     cross_layer_count: number of cross layers contributing.
@@ -64,13 +66,17 @@ def get_token_maps(
 ):
     """Per-span soft masks [1, h, w] (background last), summing to 1.
 
-    ``clusters`` ([res, res] labels) skips the clustering; the parity tests
-    pass the JAX package's labels through it.
+    The segmentation grid has the aspect of ``latent_hw``. ``clusters``
+    ([rows, columns] labels) skips the clustering; the parity tests pass the
+    JAX package's labels through it.
     """
     affinity = torch.as_tensor(agg.self_sum)
-    res = int(round(np.sqrt(affinity.shape[0])))
-    if tuple(affinity.shape) != (res * res, res * res):
-        raise ValueError(f"self_sum must be square over a square grid, got "
+    lat_h, lat_w = latent_hw
+    res = int(round(np.sqrt(affinity.shape[0] * lat_h / lat_w)))  # rows
+    res_w = res * lat_w // lat_h
+    if tuple(affinity.shape) != (res * res_w, res * res_w):
+        raise ValueError(f"self_sum must be square over a grid of the "
+                         f"latent's aspect {tuple(latent_hw)}, got "
                          f"{tuple(affinity.shape)}")
     if clusters is None:
         key = (seed, num_segments, n_init)
@@ -79,15 +85,16 @@ def get_token_maps(
             gen = torch.Generator(device=affinity.device).manual_seed(seed)
             clusters = spectral_cluster(
                 affinity, num_segments, n_init=n_init, generator=gen,
-            ).cpu().numpy().reshape(res, res)
+            ).cpu().numpy().reshape(res, res_w)
             agg.cluster_cache[key] = clusters
 
     # ---- cross-attention maps -> res^2, averaged over layers
-    cross = np.zeros((res, res, 77), dtype=np.float32)
+    cross = np.zeros((res, res_w, 77), dtype=np.float32)
     for r, m in agg.cross_sums.items():
-        m = np.asarray(m, dtype=np.float32).reshape(r, r, 77)
+        m = np.asarray(m, dtype=np.float32).reshape(r, -1, 77)
         if r != res:
-            m = _resize_np(m.transpose(2, 0, 1), (res, res)).transpose(1, 2, 0)
+            m = _resize_np(m.transpose(2, 0, 1),
+                           (res, res_w)).transpose(1, 2, 0)
         cross += m
     cross /= max(agg.cross_layer_count, 1)
 
@@ -100,8 +107,8 @@ def get_token_maps(
         span_maps.append((span - np.abs(lo)) / (hi - lo + 1e-12))
 
     # ---- cluster -> span assignment (attention_utils.py:308-322)
-    foreground = [np.zeros((res, res), np.float32) for _ in obj_tokens]
-    background = np.zeros((res, res), np.float32)
+    foreground = [np.zeros((res, res_w), np.float32) for _ in obj_tokens]
+    background = np.zeros((res, res_w), np.float32)
     for c in range(num_segments):
         cmask = (clusters == c).astype(np.float32)
         csum = max(cmask.sum(), 1e-12)

@@ -66,7 +66,7 @@ def test_wrappers_take_plain_version_on_cpu():
     o2, p2 = T.flash_attention_avg_probs_plain(q, k, v)
     torch.testing.assert_close(o, o2)
     torch.testing.assert_close(p, p2)
-    assert T.LAUNCHES == {"full": 0, "full_t": 0, "avgp": 0}
+    assert T.LAUNCHES == {"full": 0, "full_t": 0, "avgp": 0, "stream": 0}
 
 
 def test_kernel_argument_checks():
@@ -79,15 +79,18 @@ def test_kernel_argument_checks():
         T._check("t", qt, qt, qt)
     with pytest.raises(ValueError):
         q2 = torch.zeros((1, 2, 64, 100), dtype=torch.bfloat16)
-        T._check("t", q2, q2, q2)
+        T._check("t", q2, q2, q2)  # not a multiple of 8
+    with pytest.raises(ValueError):
+        q3 = torch.zeros((1, 2, 64, 168), dtype=torch.bfloat16)
+        T._check("t", q3, q3, q3)  # above the widest instantiation
 
 
 def test_bucket_rule_matches_jax_dispatch():
     # the JAX dispatch: transposed kernel for d == 80 and Skv <= 1024
-    assert T._bucket(80, 1024) == "full_t"
-    assert T._bucket(80, 1025) == "full"
-    assert T._bucket(40, 4096) == "full"
-    assert T._bucket(40, 1024) == "full"
+    assert T._bucket(1024, 1024, 80) == "full_t"
+    assert T._bucket(1025, 1025, 80) == "full"
+    assert T._bucket(4096, 4096, 40) == "full"
+    assert T._bucket(1024, 1024, 40) == "full"
 
 
 @pytest.mark.parametrize("with_weights", [False, True])

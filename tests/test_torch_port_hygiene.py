@@ -5,6 +5,9 @@
     none of the packages the GPU machine lacks (``regex``, Pillow, imageio,
     matplotlib).
   * No source of the port (nor ``chip_smoke.py``) imports them.
+  * The kernels' CUDA sources are the files under ``csrc/`` and include
+    only the CUDA toolkit's headers and each other; they build into the
+    git-ignored ``_build/``.
   * At the full SD-1.5 shapes (JAX ``eval_shape`` only, no compute; torch
     modules on the meta device) every flax leaf maps to exactly one port
     parameter of the right shape, and every port parameter to one leaf.
@@ -12,6 +15,7 @@
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -87,6 +91,27 @@ def test_no_source_imports_jax_or_the_jax_package():
             bad += [f"{path}: {n}" for n in names if _is_forbidden(n)]
     assert len(_sources()) > 20
     assert not bad, bad
+
+
+def test_kernel_sources_are_in_the_repo_and_self_contained():
+    from rich_text_to_image_tpu_torch.ops import build
+
+    assert sorted(os.listdir(build.CSRC)) == sorted(
+        build.SOURCES + build.HEADERS)
+    assert {"attention.cu", "attention_stream.cu", "conv.cu"} <= set(
+        build.SOURCES)
+    toolkit = {"cuda_bf16.h", "cuda_runtime.h", "math.h", "stdint.h"}
+    for name in build.SOURCES + build.HEADERS:
+        with open(os.path.join(build.CSRC, name), encoding="utf-8") as f:
+            included = set(re.findall(r'#include\s+[<"]([^>"]+)[>"]', f.read()))
+        assert included <= toolkit | set(build.HEADERS), (name, included)
+    # built at first use, beside the package, into a directory git ignores
+    assert os.path.relpath(build.BUILD_DIR, ROOT) == os.path.join(
+        "rich_text_to_image_tpu_torch", "_build")
+    with open(os.path.join(ROOT, ".gitignore"), encoding="utf-8") as f:
+        assert "rich_text_to_image_tpu_torch/_build/" in f.read().split()
+    for src in build.SOURCES:  # a library per source, keyed by its content
+        assert build._lib_path(src).startswith(build.BUILD_DIR + os.sep)
 
 
 def _flax_shapes(module, *args):

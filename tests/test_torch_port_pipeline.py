@@ -27,6 +27,7 @@ from rich_text_to_image_tpu_torch.cli import sample as t_cli
 from rich_text_to_image_tpu_torch.models.clip import CLIPTextModel
 from rich_text_to_image_tpu_torch.models.tokenizer import CLIPTokenizer
 from rich_text_to_image_tpu_torch.models.unet import UNet2DCondition
+from rich_text_to_image_tpu_torch.models import unet as T_unet
 from rich_text_to_image_tpu_torch.models.vae import AutoencoderKL
 from rich_text_to_image_tpu_torch.pipelines import region_sd as T
 from torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -142,32 +143,47 @@ def test_rich_pass_matches_jax(pipes, plain):
 
 
 def test_injection_raises(pipes):
+    """Injection runs through the in-batch flow now (its parity is held in
+    tests/test_torch_port_injection.py); what still raises is what is not
+    ported: the prompt-to-prompt controls, and a source row with no
+    destination."""
     _, tp = pipes
     tp.masks = [np.ones((1, H, H), np.float32)]
+    img = tp.prompt_to_img(["a cat"], height=PX, width=PX,
+                           num_inference_steps=2, inject_selfattn=0.3,
+                           inject_background=0.3)
+    assert img.shape == (1, PX, PX, 3) and img.dtype == np.uint8
+    x, ctx = torch.zeros((1, H, H, 4)), torch.zeros((1, 77, 32))
     with pytest.raises(NotImplementedError):
-        tp.prompt_to_img(["a cat"], height=PX, width=PX,
-                         num_inference_steps=2, inject_selfattn=0.3)
-    with pytest.raises(NotImplementedError):
-        tp.produce_latents(tp.get_text_embeds(["a cat"]), height=PX,
-                           width=PX, num_inference_steps=2,
-                           spec=T.RichControlSpec(inject_background=0.3))
+        tp.unet(x, 1, ctx, controls=T_unet.UNetControls(cross_mapper=x))
+    with pytest.raises(ValueError):
+        tp.unet(x, 1, ctx, controls=T_unet.UNetControls(inject_src=0))
 
 
-def test_cli_flow_runs_on_cpu(pipes, tmp_path):
+@pytest.mark.parametrize("px_h,px_w,extra", [
+    (PX, PX, []), (48, 48, []), (PX, 32, []), (32, PX, []),
+    (PX, PX, ["--inject_selfattn", "0.3", "--inject_background", "0.3",
+              "--no_ref_precompute"]),
+], ids=["16x16", "48x48", "16x32", "32x16", "16x16-inject"])
+def test_cli_flow_runs_on_cpu(pipes, tmp_path, px_h, px_w, extra):
     """The CLI's run_sample at the tiny config: images of the right shape,
-    written as PNG."""
+    written as PNG; at the square size of the parity tests, at one whose
+    latent (24 rows) has its segmentation level elsewhere, at two
+    non-square sizes (the tiny VAE halves the size, and the UNet needs
+    latent sides in multiples of 8), and with injection."""
     _, tp = pipes
     text = json.dumps(DOC)
     args = t_cli.make_parser().parse_args(
         ["--run_dir", str(tmp_path), "--sample_steps", "4", "--device", "cpu",
-         "--rich_text_json", text, "--num_segments", "3"])
+         "--rich_text_json", text, "--num_segments", "3", *extra])
     t_cli.check_args(args)
-    param = {"text_input": json.loads(text), "height": PX, "width": PX,
+    param = {"text_input": json.loads(text), "height": px_h, "width": px_w,
              "guidance_weight": 8.5, "steps": 4, "noise_index": 1,
              "negative_prompt": ""}
     plain_img, rich_img, seconds = t_cli.run_sample(tp, args, param)
-    assert plain_img.shape == rich_img.shape == (1, PX, PX, 3)
+    assert plain_img.shape == rich_img.shape == (1, px_h, px_w, 3)
     assert plain_img.dtype == np.uint8
+    assert rich_img.std() > 0
     assert set(seconds) == {"plain_pass", "token_maps", "rich_pass"}
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "seed1_plain.png", "seed1_rich.png"]
@@ -177,7 +193,7 @@ def test_cli_flow_runs_on_cpu(pipes, tmp_path):
     ["--model", "SDXL"], ["--scheduler", "euler"], ["--inject_selfattn", "0.3"],
     ["--encoder_reuse", "2"], ["--bf16_guidance"], ["--guidance_downsample", "2"],
     ["--mesh", "auto"], ["--inject_background", "0.3"], ["--save_attn"],
-])
+])  # injection without --no_ref_precompute is the refer-precompute flow
 def test_cli_rejects_unported_flags(argv):
     with pytest.raises(SystemExit):
         t_cli.check_args(t_cli.make_parser().parse_args(argv))

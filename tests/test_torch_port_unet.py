@@ -136,11 +136,13 @@ def test_encode_decode_compose_forward():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(controls=T.UNetControls(inject_src=1, inject_dst=(2, 3))),
-    dict(controls=T.UNetControls(inject_qk={})),
-    dict(capture=T.CaptureSpec(qk=True)),
+    dict(controls=T.UNetControls(inject_cross={})),
+    dict(controls=T.UNetControls(cross_mix=torch.zeros(77))),
+    dict(capture=T.CaptureSpec(cross_full=True)),
 ])
 def test_unported_controls_raise(kw):
+    """The prompt-to-prompt controls; the injection controls are ported
+    (tests/test_torch_port_injection.py)."""
     unet = weights.random_init(T.UNet2DCondition(C.TINY_UNET), 0)
     with pytest.raises(NotImplementedError):
         unet(torch.zeros((1, 8, 8, 4)), 1, torch.zeros((1, 77, 32)), **kw)
