@@ -14,7 +14,8 @@ is no CUDA device or the port's package is not beside it. Phases, in order:
      the card, at the shapes the paths below give it plus ragged and odd
      ones, with its time, the plain version's, the least time the card
      could take, and a library call's as a yardstick
-     (``scaled_dot_product_attention``, ``F.conv2d``);
+     (``scaled_dot_product_attention``, ``F.conv2d``); then the host time
+     a launch of the attention and convolution wrappers;
   4. UNet: one full-width SD-1.5 CFG forward (bfloat16, random weights, 64^2
      latent) with capture of the five 32^2 layers, through the kernels and
      again with the plain attention, compared;
@@ -45,9 +46,12 @@ import subprocess
 import sys
 import time
 
-# published peaks of one H100 SXM (dense bf16 tensor rate, HBM3 bandwidth)
+# published peaks of one H100 SXM (dense bf16 tensor rate, HBM3 bandwidth);
+# the special-function units give 16 exp2 a clock on each of 132 SMs
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+SMS = 132
+EXP2_PER_CLOCK_PER_SM = 16
 
 OUT_RTOL = 2e-2  # bf16 output, relative to max|o_ref|: the plain version's
 #                  own bf16 rounding (of p and of o) is ~0.4% of it against
@@ -109,13 +113,63 @@ def _smi() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, iters: int) -> float:
+def _max_sm_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
+
+
+def _host_us(fn, launches: int = 300) -> float:
+    """Host microseconds a call of ``fn``, which launches without waiting:
+    the host clock over ``launches`` calls with no synchronisation inside
+    (the queue of launches is drained before and after, and 300 launches
+    do not fill it: a full queue would make the host wait for the card)."""
+    import torch
+
+    for _ in range(10):
+        fn()
+    reps = []
+    for _ in range(3):  # the median of three: the host is shared
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(launches):
+            fn()
+        reps.append((time.perf_counter() - t0) / launches * 1e6)
+    torch.cuda.synchronize()
+    return sorted(reps)[1]
+
+
+_PLUG = []
+
+
+def _plug() -> None:
+    """Keeps the card busy for ~3 ms (two 8192^2 bf16 matrix products), so
+    that launches queued behind it run back to back: the events around them
+    then read device time, not the host's time to launch."""
+    import torch
+
+    if not _PLUG:
+        _PLUG.append(torch.randn((8192, 8192), device="cuda",
+                                 dtype=torch.bfloat16))
+    for _ in range(2):
+        torch.mm(_PLUG[0], _PLUG[0])
+
+
+def _time_ms(fn, iters: int, plug: bool = False) -> float:
+    """Milliseconds a call of ``fn`` between two CUDA events over ``iters``
+    calls. With ``plug`` the calls are queued while the card is busy, which
+    leaves the host's launch time out: for a kernel shorter than its
+    wrapper's host time (~30 us) the plain reading is the host's."""
     import torch
 
     for _ in range(2):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if plug:
+        _plug()
     start.record()
     for _ in range(iters):
         fn()
@@ -145,15 +199,24 @@ def _qkv(b, h, s, d, seed):
     return q, k, v
 
 
-def _bound(flops: float, nbytes: float):
+def _bound(flops: float, nbytes: float, exp2s: float = 0.0,
+           sm_hz: float = 1.0):
+    """(least ms, what sets it): the largest of the tensor-core operations
+    at their peak rate, the bytes at the memory's rate, and the exponentials
+    at the special-function units' rate (operations too, of another unit)."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    t_exp = exp2s / (EXP2_PER_CLOCK_PER_SM * SMS * sm_hz)
+    t = max(t_ops, t_bytes, t_exp)
+    return t * 1e3, ("bytes" if t == t_bytes else "operations"), (
+        "exp2" if t == t_exp else "bytes" if t == t_bytes else "tensor")
 
 
-def _bound_ms(b, h, s, d, pavg: bool):
+def _bound_ms(b, h, s, d, pavg: bool, sm_hz: float):
+    """Attention: 4*S*S*d tensor operations, q, k, v read and o written
+    once (plus the head average), and one exp2 a score, a (batch, head)."""
     return _bound(4 * b * h * s * s * d,
-                  4 * b * h * s * d * 2 + (b * s * s * 4 if pavg else 0))
+                  4 * b * h * s * d * 2 + (b * s * s * 4 if pavg else 0),
+                  b * h * s * s, sm_hz)
 
 
 # (row of the kernels line, wrapper, B, H, S, d, expected launch bucket,
@@ -161,7 +224,9 @@ def _bound_ms(b, h, s, d, pavg: bool):
 # (the only one that captures, so K3 sees no other), R+2 in the rich pass and
 # R+4 in the rich pass with injection (512^2 only). Besides: ragged S, the
 # 1280-channel level's head dim 160, a head dim that runs at a wider
-# instantiation (64 at 80), and the streaming kernel with named blocks.
+# instantiation (64 at 80), the streaming kernel with named blocks, and for
+# attn_fwd_kernel's tiles of 64, 128 and 192 rows: S that is no multiple of
+# the tile, and batch 1 shapes small enough for the 64-row tile.
 _RICH, _INJ = REGIONS + 2, REGIONS + 4
 ATTN_CASES = [
     ("K1_attn_fwd_64x64", "fwd", 2, 8, 4096, 40, "full", {}),
@@ -170,6 +235,8 @@ ATTN_CASES = [
     ("K1_attn_fwd_64x64", "fwd", 2, 8, 4000, 40, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", 2, 8, 576, 160, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", _RICH, 8, 576, 160, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", 2, 8, 520, 160, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", 1, 8, 1000, 40, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", 2, 8, 1024, 160, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", 2, 8, 2304, 80, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", _RICH, 8, 2304, 80, "full", {}),
@@ -178,6 +245,8 @@ ATTN_CASES = [
     ("K2_attn_fwd_32x32", "fwd", _RICH, 8, 1024, 80, "full_t", {}),
     ("K2_attn_fwd_32x32", "fwd", _INJ, 8, 1024, 80, "full_t", {}),
     ("K2_attn_fwd_32x32", "fwd", 2, 8, 1000, 80, "full_t", {}),
+    ("K2_attn_fwd_32x32", "fwd", _RICH, 8, 1000, 80, "full_t", {}),
+    ("K2_attn_fwd_32x32", "fwd", 1, 8, 520, 80, "full_t", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 8, 1024, 80, "avgp", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 8, 1000, 80, "avgp", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 8, 2304, 80, "avgp", {}),
@@ -204,6 +273,7 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
     from rich_text_to_image_tpu_torch.ops import build
 
     rows = {}
+    sm_hz = _max_sm_hz()
     for name, kind, b, h, s, d, bucket, kw in cases:
         q, k, v = _qkv(b, h, s, d, seed=s + d + b)
         scale = d ** -0.5
@@ -233,18 +303,21 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
         err = (o.float() - o_ref.float()).abs().max().item()
         o_max = o_ref.float().abs().max().item()
         ok = err <= OUT_RTOL * o_max and p_err <= PAVG_RTOL
-        ms = _time_ms(kern, 20)
-        plain_ms = _time_ms(plain, 3)
+        ms = _time_ms(kern, 20, plug=True)
+        plain_ms = _time_ms(plain, 3, plug=True)
         sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, scale=scale), 20)
-        bound, bound_by = _bound_ms(b, h, s, d, avgp)
+            q, k, v, scale=scale), 20, plug=True)
+        bound, bound_by, unit = _bound_ms(b, h, s, d, avgp, sm_hz)
+        tile = (f" tile={A._fwd_tile(b, h, s, d)}"
+                if bucket in ("full", "full_t") else "")
         line = (f"kernel {name} B={b} H={h} S={s} d={d} {kw or ''} -> "
-                f"{bucket}: max|d out|={err:.3e} "
+                f"{bucket}{tile}: max|d out|={err:.3e} "
                 f"= {err / o_max:.3e} of max|o_ref| {o_max:.3f} "
                 f"(tol {OUT_RTOL} of it)"
                 + (f" pavg rel={p_err:.3e} (tol {PAVG_RTOL})" if avgp else "")
                 + f" ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f}"
-                f" ({bound_by}) sdpa_ms={sdpa_ms:.4f}")
+                f" ({bound_by}: {unit} at {sm_hz / 1e6:.0f} MHz) "
+                f"sdpa_ms={sdpa_ms:.4f}")
         print(line, flush=True)
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version: "
@@ -268,12 +341,17 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
             9216, 9216, 40, *A._strides(q), *A._strides(k), *A._strides(v),
             *A._strides(out), float(40 ** -0.5 * A._LOG2E))
     st = torch.cuda.current_stream().cuda_stream
-    t = {"attn_fwd_kernel": _time_ms(lambda: lib.rtt_attn_fwd(*args, st), 20)}
+    t = {"attn_fwd_kernel": _time_ms(lambda: lib.rtt_attn_fwd(
+        *args, *A._fwd_tile(2, 8, 9216, 40), st), 20, plug=True)}
     for tk in (64, 128):
         t[f"attn_stream_kernel tk={tk}"] = _time_ms(
-            lambda: lib.rtt_attn_stream_fwd(*args, tk, st), 20)
+            lambda: lib.rtt_attn_stream_fwd(*args, tk, st), 20, plug=True)
     print("kernel K4 against K1's kernel at [2,8,9216,40], ms: "
           + json.dumps(t), flush=True)
+    q, k, v = _qkv(2, 8, 4096, 40, seed=2)
+    print("kernel K1 wrapper host us a launch at [2,8,4096,40]: "
+          f"{_host_us(lambda: A.flash_attention(q, k, v, 40 ** -0.5)):.2f}",
+          flush=True)
     return rows
 
 
@@ -310,8 +388,10 @@ def conv_kernel_phase() -> tuple:
     row, times = None, {}
     cases = [(b, r, r, c, o) for b in (2, REGIONS + 2)
              for r, c, o in SD15_CONV_SHAPES]
-    cases.append((3, 8, 24, 64, 192))   # W != H, odd batch, one split
-    cases.append((1, 9, 13, 640, 128))  # a ragged 117-pixel tile, 8 splits
+    cases.append((3, 8, 24, 64, 192))   # W != H, odd batch, the 64-wide tile
+    cases.append((1, 9, 13, 640, 128))  # a ragged 117-pixel tile, 128 wide
+    cases.append((1, 24, 24, 320, 320))   # M = 576: a ragged last M tile
+    cases.append((2, 16, 16, 640, 128))   # O takes the 128-wide tile
     for b, hh, ww, c, o in cases:
         x, w, bias = _conv_inputs(b, hh, ww, c, o, seed=hh + c + o + b)
         CV.reset_launches()
@@ -329,14 +409,16 @@ def conv_kernel_phase() -> tuple:
         lib = lambda: F.conv2d(x_cf, w_cf, bias, padding=1)
         lib_err = (lib().permute(0, 2, 3, 1).float()
                    - want.float()).abs().max().item()
-        ms = _time_ms(lambda: CV.conv3x3(x, w, bias), 20)
-        plain_ms = _time_ms(lambda: CV.conv3x3_plain(x, w, bias), 3)
-        lib_ms = _time_ms(lib, 20)
+        ms = _time_ms(lambda: CV.conv3x3(x, w, bias), 20, plug=True)
+        plain_ms = _time_ms(lambda: CV.conv3x3_plain(x, w, bias), 3,
+                            plug=True)
+        lib_ms = _time_ms(lib, 20, plug=True)
         m = b * hh * ww
-        bound, bound_by = _bound(2.0 * m * 9 * c * o,
-                                 2.0 * (m * (c + o) + 9 * c * o + o))
+        bound, bound_by, _ = _bound(2.0 * m * 9 * c * o,
+                                    2.0 * (m * (c + o) + 9 * c * o + o))
         line = (f"kernel K5_conv3x3 B={b} H={hh} W={ww} C={c} O={o} "
-                f"splits={CV.k_splits(b * hh * ww, c, o)}: "
+                f"tile={CV.conv_tile(m, c, o)} "
+                f"splits={CV.k_splits(m, c, o)}: "
                 f"max|d out|={err:.3e} = {err / ref_max:.3e} of max|ref| "
                 f"{ref_max:.3f} (tol {OUT_RTOL} of it; F.conv2d is at "
                 f"{lib_err / ref_max:.3e}) ms={ms:.4f} plain_ms="
@@ -367,6 +449,9 @@ def conv_kernel_phase() -> tuple:
          "pack_weight_ms [320,320,3,3]": _time_ms(
              lambda: CV.pack_weight(wt), 20)}
     print("kernel K5 layout costs: " + json.dumps(t), flush=True)
+    x, w, bias = _conv_inputs(2, 64, 64, 320, 320, seed=5)
+    print("kernel K5 wrapper host us a launch at [2,64,64,320]->320: "
+          f"{_host_us(lambda: CV.conv3x3(x, w, bias)):.2f}", flush=True)
     return {"K5_conv3x3": row}, times
 
 

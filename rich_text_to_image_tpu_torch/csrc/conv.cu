@@ -13,173 +13,181 @@
 // weights (9*C*O bf16, 1.8-59 MB) are read once per 128-pixel tile from L2.
 //
 // What the design does about it. An implicit GEMM, M = B*H*W output pixels,
-// N = O, K = 9*C, with no padded copy of the input:
-//   * a CTA (8 warps, 4 along M by 2 along N, a 32x32 tile each) owns 128
-//     pixels x 64 output channels, and loops over the 9 taps and over
-//     64-channel slices of C;
-//   * for each (tap, slice) its threads copy the 128 shifted input rows
-//     [pixel (h+dy-1, w+dx-1)][64 channels] and the 64x64 weight block into
-//     shared memory with cp.async; a pixel outside the image is zero-filled
-//     by the copy itself, which is where the padding lives. Each thread's
-//     pixels are fixed, so their (b, h, w) are decoded once;
-//   * two buffers: the copy of step i+1 is in flight while step i is
-//     multiplied with mma.sync m16n8k16; A fragments come from ldmatrix.x4,
-//     B fragments from ldmatrix.x4.trans of the [k][n] weight block. Three
-//     CTAs fit an SM (80 registers a thread, 54 KB of shared memory each).
-//     A ring of three buffers with one barrier a step measured slower: each
-//     step moves 24 KB per CTA out of L2 for 1 MFLOP, about 4 TB/s over the
-//     card at the measured rate, so the tile, not the latency, is the limit;
+// N = O, K = 9*C, with no padded copy of the input, on Hopper's warpgroup
+// product (wgmma.cuh):
+//   * a CTA of two warpgroups owns TM = 128 or 256 pixels (64 or 128 rows a
+//     warpgroup) x TN output channels and loops over the 9 taps and over
+//     64-channel slices of C. TN = 160 divides every width of the SD-1.5
+//     UNet (320, 640, 1280): no ragged N tile, and a step moves 14 KB out
+//     of L2 per MFLOP at 128 x 160 (10 at 256 x 160) where a 128 x 64 tile
+//     moved 24; 128 and 64 serve the other multiples of 64;
+//   * both operands are read by wgmma from shared memory in the 128-byte
+//     swizzled layout: the activations [pixel][64 channels] K-major, the
+//     weight block [64 channels][TN] as it lies in device memory, MN-major,
+//     in chunks of 64 outputs;
+//   * a ring of four stages filled by cp.async (it zero-fills a pixel
+//     outside the image, which is where the padding lives; each thread's
+//     pixels are fixed, so their (h, w) are decoded once): the copy of step
+//     i+2 is in flight while step i is multiplied, and the products of step
+//     i run while the threads start those copies. cp.async rather than TMA:
+//     the activation tile is a gather by pixel, which a tiled tensor map
+//     does not describe, and the kernel then needs no tensor map on the
+//     host at all, whose launches are what the UNet forward waits for;
 //   * the bias is added to the fp32 sums, which are rounded to bf16 once;
-//   * small images give few tiles (B*8*8/128 x O/64 = 20 at the 8^2 level
-//     of SD-1.5, on 132 SMs) with a long K (9*C up to 23,040). There the
-//     steps are split over blockIdx.z: each CTA writes its fp32 partial
+//   * small images give few tiles with a long K (9*C up to 23,040). There
+//     the steps are split over blockIdx.z: each CTA writes its fp32 partial
 //     sums to a workspace [splits][M][O], and a second kernel adds the
 //     partials in a fixed order (no atomics, so the result is the same
 //     from run to run), then the bias, and rounds.
-// A tile of 128 pixels may span image rows and batch rows (W = 8 puts 16
-// rows in one tile): every pixel carries its own coordinates, so nothing
-// wraps. Its times are in PERF.md.
+// A tile of 128 or 256 pixels may span image rows and batch rows (W = 8
+// puts 16 rows in one tile): every pixel carries its own coordinates, so
+// nothing wraps. Its times are in PERF.md.
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using namespace rtt;
 
-constexpr int CBM = 128;  // output pixels per CTA
-constexpr int CBN = 64;   // output channels per CTA
-constexpr int CBK = 64;   // input channels per step
-constexpr int CTHREADS = 256;
-constexpr int LDA = CBK + PAD;  // shared-memory row lengths, in elements
-constexpr int LDB = CBN + PAD;
-constexpr int A_ROWS_PER_THREAD = CBM * (CBK / 8) / CTHREADS;  // 4
-constexpr int STAGE = CBM * LDA + CBK * LDB;  // elements per buffer
-constexpr int NSTAGE = 2;                     // buffers in the ring
+constexpr int CBK = 64;        // input channels per step: one swizzled row
+constexpr int CTHREADS = 256;  // two warpgroups
+constexpr int NSTAGE = 4;      // stages of the ring
+constexpr int PD = NSTAGE - 2; // step i + PD is requested at step i
+
+template <int TM, int TN>
+struct ConvCfg {
+  static constexpr int MI = TM / 128;            // 64-row blocks a warpgroup
+  static constexpr int A_BYTES = TM * SWZ_ROW;
+  static constexpr int NCH = (TN + 63) / 64;     // 64-output chunks
+  static constexpr int B_BYTES = NCH * CBK * SWZ_ROW;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int SMEM = 1024 + NSTAGE * STAGE;
+  static constexpr int A_ROWS = TM * 8 / CTHREADS;  // pixels a thread copies
+};
+
+template <int TN>
+__device__ __forceinline__ void conv_mma(float* acc, uint64_t da, uint64_t db) {
+  if constexpr (TN == 160) wgmma_ss_n160<1>(acc, da, db, 1);
+  else if constexpr (TN == 128) wgmma_ss_n128<1>(acc, da, db, 1);
+  else wgmma_ss_n64<1>(acc, da, db, 1);
+}
 
 // SPLIT = false: all steps, bias added, bf16 out. SPLIT = true: the steps
 // of split blockIdx.z, fp32 partial sums into ws[blockIdx.z][M][O].
-template <bool SPLIT>
-__global__ void __launch_bounds__(CTHREADS, 3)
+template <int TM, int TN, bool SPLIT>
+__global__ void __launch_bounds__(CTHREADS, 1)
     conv3x3_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                    const bf16* __restrict__ bias, bf16* __restrict__ out,
                    float* __restrict__ ws, int B, int H, int W, int C, int O,
                    int steps_per_split) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  using Cfg = ConvCfg<TM, TN>;
+  constexpr int MI = Cfg::MI;
+  extern __shared__ unsigned char smem_raw[];
+  // the swizzle is a function of the address: tiles start at 1024 bytes
+  const uint32_t ring = (smem_addr(smem_raw) + 1023u) & ~1023u;
 
   const int M = B * H * W;
-  const int m0 = blockIdx.x * CBM;
-  const int n0 = blockIdx.y * CBN;
+  const int m0 = blockIdx.x * TM;
+  const int n0 = blockIdx.y * TN;
   const int t = threadIdx.x;
-  const int warp = t / 32, lane = t % 32;
+  const int wg = t / 128, warp = (t / 32) % 4, lane = t % 32;
   const int g = lane >> 2, tig = lane & 3;
-  const int wm = (warp & 3) * 32, wn = (warp >> 2) * 32;
 
   // this thread's share of the A tile: rows t/8 + 32*i, 16-byte chunk t%8
-  const int a_chunk = (t & 7) * 8;
-  int a_h[A_ROWS_PER_THREAD], a_w[A_ROWS_PER_THREAD];
-  long long a_pix[A_ROWS_PER_THREAD];  // pixel index b*H*W + h*W + w
+  const int a_chunk = t & 7;
+  int a_hw[Cfg::A_ROWS];   // (h << 16) | w of the pixel
+  int a_off[Cfg::A_ROWS];  // element offset of the pixel's channel 0
 #pragma unroll
-  for (int i = 0; i < A_ROWS_PER_THREAD; ++i) {
+  for (int i = 0; i < Cfg::A_ROWS; ++i) {
     const int m = m0 + (t >> 3) + 32 * i;
     if (m < M) {
       const int hw = m % (H * W);
-      a_h[i] = hw / W;
-      a_w[i] = hw % W;
-      a_pix[i] = m;
+      a_hw[i] = ((hw / W) << 16) | (hw % W);
+      a_off[i] = m * C;
     } else {
-      a_h[i] = -4;  // no tap brings it inside the image: always zero-filled
-      a_w[i] = -4;
-      a_pix[i] = 0;
+      a_hw[i] = (0x4000 << 16) | 0x4000;  // no tap brings it inside the image
+      a_off[i] = 0;
     }
   }
+  // its share of the weight block: rows of 64 channels x TN outputs
+  const TileCopier<TN, CBK, CTHREADS> b_copy(TN, t);
 
   const int k_slices = C / CBK;
   const int step0 = SPLIT ? blockIdx.z * steps_per_split : 0;
   const int step1 = SPLIT ? min(9 * k_slices, step0 + steps_per_split)
                           : 9 * k_slices;
 
-  auto load_step = [&](int step, int buf) {
+  auto load_step = [&](int step) {
     const int tap = step / k_slices, c0 = (step % k_slices) * CBK;
     const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    bf16* As = smem + buf * STAGE;
-    bf16* Bs = As + CBM * LDA;
+    const uint32_t a_s = ring + ((step - step0) % NSTAGE) * Cfg::STAGE;
+    const int shift = (dy * W + dx) * C + c0 + a_chunk * 8;
 #pragma unroll
-    for (int i = 0; i < A_ROWS_PER_THREAD; ++i) {
-      const int hh = a_h[i] + dy, ww = a_w[i] + dx;
+    for (int i = 0; i < Cfg::A_ROWS; ++i) {
+      const int hh = (a_hw[i] >> 16) + dy, ww = (a_hw[i] & 0xFFFF) + dx;
       const bool ok = hh >= 0 && hh < H && ww >= 0 && ww < W;
-      const bf16* p =
-          ok ? x + (a_pix[i] + dy * W + dx) * C + c0 + a_chunk : x;
-      cp_async16(As + ((t >> 3) + 32 * i) * LDA + a_chunk, p, ok);
+      cp_async16_to(a_s + swz_offset((t >> 3) + 32 * i, a_chunk),
+                    ok ? x + a_off[i] + shift : x, ok);
     }
-    const bf16* wb = w + ((long long)tap * C + c0) * O + n0;
-#pragma unroll
-    for (int i = 0; i < CBK * (CBN / 8) / CTHREADS; ++i) {  // 2
-      const int idx = t + i * CTHREADS;
-      const int r = idx >> 3, c = (idx & 7) * 8;
-      cp_async16(Bs + r * LDB + c, wb + (long long)r * O + c, true);
-    }
+    b_copy.copy(a_s + Cfg::A_BYTES, w + n0, O, tap * C + c0, 1 << 30);
   };
 
-  float acc[2][4][4];
+  float acc[MI][TN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+    for (int i = 0; i < TN / 2; ++i) acc[mi][i] = 0.f;
 
-  load_step(step0, 0);
-  cp_async_commit();
-  for (int step = step0; step < step1; ++step) {
-    const int it = step - step0;
-    // the buffer step+1 goes into was read last at step-1, and every warp
-    // passed the barrier that ended that step
-    if (step + 1 < step1) {
-      load_step(step + 1, (it + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* As = smem + (it % NSTAGE) * STAGE;
-    const bf16* Bs = As + CBM * LDA;
+  // One copy group is committed for every step index, empty past the last,
+  // so that "all but the newest PD - 1 groups" always names this step.
 #pragma unroll
-    for (int kk = 0; kk < CBK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        // matrices: rows 0-7 / 8-15 at k 0-7, then rows 0-7 / 8-15 at k 8-15
-        ldsm_x4(a[i], As + (wm + i * 16 + (lane & 15)) * LDA + kk * 16 +
-                          (lane >> 4) * 8);
-#pragma unroll
-      for (int jp = 0; jp < 2; ++jp) {  // two 8-wide column blocks a load
-        uint32_t bfr[4];
-        ldsm_x4_trans(bfr, Bs + (kk * 16 + (lane & 15)) * LDB + wn + jp * 16 +
-                               (lane >> 4) * 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma16816(acc[i][2 * jp], a[i], bfr[0], bfr[1]);
-          mma16816(acc[i][2 * jp + 1], a[i], bfr[2], bfr[3]);
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with this step's buffer
+  for (int s = 0; s < PD; ++s) {
+    if (step0 + s < step1) load_step(step0 + s);
+    cp_async_commit();
   }
+  for (int step = step0; step < step1; ++step) {
+    cp_async_wait<PD - 1>();
+    fence_async_smem();
+    // every thread's copies of this step are visible, and every warpgroup
+    // has waited for its products of step - 2, whose stage the next copy
+    // overwrites
+    __syncthreads();
+    if (step + PD < step1) load_step(step + PD);
+    cp_async_commit();
+
+    const uint32_t a_s = ring + ((step - step0) % NSTAGE) * Cfg::STAGE;
+    // this warpgroup's rows: MI blocks of 64, one after the other
+    const uint64_t da = desc_kmajor(a_s + wg * MI * 64 * SWZ_ROW);
+    // the weight block: 16 channels (2048 bytes) a product, outputs 64..
+    // in the next chunk
+    const uint64_t db = desc_mnmajor(a_s + Cfg::A_BYTES, CBK * SWZ_ROW);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < CBK / 16; ++kk)
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        conv_mma<TN>(acc[mi], da + mi * (64 * SWZ_ROW >> 4) + kk * 2,
+                     db + kk * (16 * SWZ_ROW >> 4));
+    wgmma_commit();
+    wgmma_wait<1>();  // the products of step - 1
+  }
+  wgmma_wait<0>();
 
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = n0 + wn + j * 8 + tig * 2;
-    const float b0 = SPLIT ? 0.f : __bfloat162float(bias[col]);
-    const float b1 = SPLIT ? 0.f : __bfloat162float(bias[col + 1]);
+  for (int mi = 0; mi < MI; ++mi) {
+    fence_regs<TN / 2>(acc[mi]);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int j = 0; j < TN / 8; ++j) {
+      const int col = n0 + j * 8 + tig * 2;
+      const float b0 = SPLIT ? 0.f : __bfloat162float(bias[col]);
+      const float b1 = SPLIT ? 0.f : __bfloat162float(bias[col + 1]);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {  // rows g and g + 8
-        const long long r = m0 + wm + i * 16 + g + 8 * half;
+        const long long r =
+            m0 + (wg * MI + mi) * 64 + warp * 16 + g + 8 * half;
         if (r >= M) continue;
-        const float v0 = acc[i][j][2 * half] + b0;
-        const float v1 = acc[i][j][2 * half + 1] + b1;
+        const float v0 = acc[mi][4 * j + 2 * half] + b0;
+        const float v1 = acc[mi][4 * j + 2 * half + 1] + b1;
         if (SPLIT)
           *reinterpret_cast<float2*>(ws + ((long long)blockIdx.z * M + r) * O +
                                      col) = make_float2(v0, v1);
@@ -209,48 +217,76 @@ __global__ void conv3x3_reduce_kernel(const float* __restrict__ ws,
                 sum.y + __bfloat162float(bias[col + 1]));
 }
 
+template <int TM, int TN, bool SPLIT>
+cudaError_t launch_conv(const bf16* x, const bf16* w, const bf16* bias,
+                        bf16* out, float* ws, int splits, int per, int B,
+                        int H, int W, int C, int O, cudaStream_t stream) {
+  using Cfg = ConvCfg<TM, TN>;
+  static bool configured = false;  // once a process: the port drives one card
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        conv3x3_kernel<TM, TN, SPLIT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const long long M = (long long)B * H * W;
+  dim3 grid((unsigned)((M + TM - 1) / TM), O / TN, splits);
+  conv3x3_kernel<TM, TN, SPLIT><<<grid, CTHREADS, Cfg::SMEM, stream>>>(
+      x, w, bias, out, ws, B, H, W, C, O, per);
+  return cudaGetLastError();
+}
+
+template <int TM, int TN>
+cudaError_t launch_conv_tile(const bf16* x, const bf16* w, const bf16* bias,
+                             bf16* out, float* ws, int splits, int per, int B,
+                             int H, int W, int C, int O, cudaStream_t stream) {
+  if (splits == 1)
+    return launch_conv<TM, TN, false>(x, w, bias, out, nullptr, 1, per, B, H,
+                                      W, C, O, stream);
+  return launch_conv<TM, TN, true>(x, w, bias, nullptr, ws, splits, per, B, H,
+                                   W, C, O, stream);
+}
+
 }  // namespace
 
 // C interface (loaded with ctypes). x [B,H,W,C], w [9,C,O], bias [O] and
-// out [B,H,W,O] are contiguous bf16; C and O are multiples of 64. With
-// splits > 1, ws is an fp32 workspace of splits*B*H*W*O elements and the
-// 9*C/64 steps are cut into that many ranges. The wrapper checks. Returns
-// the first error of the launches (0 = success).
-extern "C" int rtt_conv3x3_fwd(const void* x, const void* w, const void* bias,
-                               void* out, void* ws, int splits, int B, int H,
-                               int W, int C, int O, void* stream_) {
+// out [B,H,W,O] are contiguous bf16; C is a multiple of 64. tile_m is 128 or
+// 256 pixels a CTA, tile_n 160, 128 or 64 output channels, a divisor of O
+// (conv_tile in ops/conv.py picks them). With splits > 1, ws is an fp32
+// workspace of splits*B*H*W*O elements and the 9*C/64 steps are cut into
+// that many ranges. The wrapper checks. Returns the first error of the
+// launches (0 = success).
+extern "C" int rtt_conv3x3_fwd(const void* x_, const void* w_,
+                               const void* bias_, void* out_, void* ws_,
+                               int splits, int tile_m, int tile_n, int B,
+                               int H, int W, int C, int O, void* stream_) {
   const int n_steps = 9 * (C / CBK);
-  if (C % CBK || O % CBN || B <= 0 || H <= 0 || W <= 0 || splits < 1 ||
-      splits > n_steps || (splits > 1 && ws == nullptr))
+  if (C % CBK || tile_n <= 0 || O % tile_n || B <= 0 || H <= 0 || W <= 0 ||
+      splits < 1 || splits > n_steps || (splits > 1 && ws_ == nullptr))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_;
-  // above the 48 KB a block may declare statically
-  const int smem = NSTAGE * STAGE * (int)sizeof(bf16);
-  const long long M = (long long)B * H * W;
-  dim3 grid((unsigned)((M + CBM - 1) / CBM), O / CBN, splits);
-  if (splits == 1) {
-    cudaError_t err = cudaFuncSetAttribute(
-        conv3x3_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-    conv3x3_kernel<false><<<grid, CTHREADS, smem, stream>>>(
-        (const bf16*)x, (const bf16*)w, (const bf16*)bias, (bf16*)out, nullptr,
-        B, H, W, C, O, n_steps);
-    return (int)cudaGetLastError();
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
   const int per = (n_steps + splits - 1) / splits;
   if ((long long)per * (splits - 1) >= n_steps)  // a split would be empty
     return (int)cudaErrorInvalidValue;
-  conv3x3_kernel<true><<<grid, CTHREADS, smem, stream>>>(
-      (const bf16*)x, (const bf16*)w, (const bf16*)bias, nullptr, (float*)ws,
-      B, H, W, C, O, per);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long MO = M * O;
+  cudaStream_t stream = (cudaStream_t)stream_;
+  const bf16 *x = (const bf16*)x_, *w = (const bf16*)w_,
+             *bias = (const bf16*)bias_;
+  bf16* out = (bf16*)out_;
+  float* ws = (float*)ws_;
+  cudaError_t err = cudaErrorInvalidValue;
+#define RTT_CONV_TILE(TM, TN)                                             \
+  if (tile_m == TM && tile_n == TN)                                       \
+    err = launch_conv_tile<TM, TN>(x, w, bias, out, ws, splits, per, B, H, \
+                                   W, C, O, stream);
+  RTT_CONV_TILE(128, 160)
+  RTT_CONV_TILE(256, 160)
+  RTT_CONV_TILE(128, 128)
+  RTT_CONV_TILE(256, 128)
+  RTT_CONV_TILE(128, 64)
+#undef RTT_CONV_TILE
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long MO = (long long)B * H * W * O;
   conv3x3_reduce_kernel<<<(unsigned)((MO / 2 + 255) / 256), 256, 0, stream>>>(
-      (const float*)ws, (const bf16*)bias, (bf16*)out, MO, O, splits);
+      ws, bias, out, MO, O, splits);
   return (int)cudaGetLastError();
 }

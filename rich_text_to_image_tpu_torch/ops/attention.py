@@ -29,6 +29,7 @@ All functions take [B, H, S, D] and return [B, H, S, D].
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 
 import numpy as np
@@ -97,6 +98,7 @@ def _fits_full_row(sq: int, skv: int, d: int, itemsize: int):
     return None
 
 
+@functools.lru_cache(maxsize=None)  # on every launch's host path
 def _bucket(sq: int, skv: int, d: int, itemsize: int = 2,
             block_q: int | None = None) -> str:
     """The kernel the JAX dispatch (ops/attention.py _flash_impl) takes: the
@@ -191,6 +193,41 @@ def _raise_if(err: int, name: str):
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
+_SMS = 132  # streaming multiprocessors of an H100
+
+
+# What a wave of attn_fwd_kernel's CTAs costs, by query rows a CTA (one, two
+# or three warpgroups that multiply), in units of a 64-row CTA's time: more
+# warpgroups an SM keep its special-function units (the exponentials) busier,
+# so the cost grows slower than the rows. Fitted to the card's times at the
+# paths' shapes (PERF.md).
+_WAVE_COST = {64: 1.0, 128: 1.65, 192: 2.1}
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_tile(b: int, h: int, sq: int, d: int) -> tuple[int, int]:
+    """(query rows a CTA, keys a K/V tile) of ``attn_fwd_kernel``.
+
+    The CTAs run in waves of one an SM. The rows are those for which the
+    waves times a wave's cost (``_WAVE_COST``) are least: 192 or 128 rows at
+    the paths' shapes, 64 where that already gives every CTA an SM of its
+    own; three warpgroups are not built above head dim 80 (registers). The
+    keys a tile are what measured fastest for the padded head dim (48, 80,
+    160) and row count; ``csrc/attention.cu launch_fwd`` builds these pairs
+    only."""
+    def cost(m):
+        ctas = -(-sq // m) * b * h
+        return -(-ctas // _SMS) * _WAVE_COST[m]
+
+    block_m = min((m for m in _WAVE_COST if m < 192 or d <= 80),
+                  key=lambda m: (cost(m), m))
+    if d > 80 or block_m == 192:
+        return block_m, 64
+    if d > 48:
+        return block_m, (128 if block_m == 64 else 64)
+    return block_m, (64 if block_m == 64 else 128)
+
+
 def _stream_tile(block_k: int) -> int:
     # the streaming kernel's shared-memory tile: the caller's block_k where
     # it is a multiple of 64, up to the kernel's 128 keys
@@ -205,7 +242,8 @@ def flash_attention(q, k, v, scale: float | None = None,
     full-row layout (``_fits_full_row``), or a call that names ``block_q``,
     takes the streaming kernel, whose K/V tile is ``block_k`` keys where
     that is a multiple of 64, at most 128; ``block_q`` itself only selects
-    the path, since the kernel's query tile is fixed at 128 rows."""
+    the path, since the streaming kernel's query tile is fixed at 128
+    rows."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     b, h, sq, d = q.shape
@@ -216,6 +254,8 @@ def flash_attention(q, k, v, scale: float | None = None,
             return flash_attention_stream_plain(q, k, v, scale, block_k)
         return flash_attention_plain(q, k, v, scale)
     _check("flash_attention", q, k, v)
+    if bucket != "stream" and not scale > 0:
+        raise ValueError("flash_attention: the kernel takes a positive scale")
     from .build import library
 
     out = _out_like(q)
@@ -228,7 +268,7 @@ def flash_attention(q, k, v, scale: float | None = None,
         err = library().rtt_attn_stream_fwd(*args, _stream_tile(block_k),
                                             stream)
     else:
-        err = library().rtt_attn_fwd(*args, stream)
+        err = library().rtt_attn_fwd(*args, *_fwd_tile(b, h, sq, d), stream)
     _raise_if(err, "flash_attention")
     LAUNCHES[bucket] += 1
     return out

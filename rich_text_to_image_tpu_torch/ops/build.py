@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("attention.cu", "attention_stream.cu", "conv.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -96,7 +96,7 @@ class _Kernels:
         self._libs = (attn, stream, conv)  # keep the handles alive
         self.rtt_attn_fwd = attn.rtt_attn_fwd
         self.rtt_attn_fwd.argtypes = (
-            [ptr] * 4 + [i32] * 5 + strides + [f32, ptr])
+            [ptr] * 4 + [i32] * 5 + strides + [f32, i32, i32, ptr])
         self.rtt_attn_avgp_fwd = attn.rtt_attn_avgp_fwd
         self.rtt_attn_avgp_fwd.argtypes = (
             [ptr] * 5 + [i32] * 5 + strides + [f32, ptr])
@@ -104,7 +104,7 @@ class _Kernels:
         self.rtt_attn_stream_fwd.argtypes = (
             [ptr] * 4 + [i32] * 5 + strides + [f32, i32, ptr])
         self.rtt_conv3x3_fwd = conv.rtt_conv3x3_fwd
-        self.rtt_conv3x3_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+        self.rtt_conv3x3_fwd.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
         for fn in (self.rtt_attn_fwd, self.rtt_attn_avgp_fwd,
                    self.rtt_attn_stream_fwd, self.rtt_conv3x3_fwd):
             fn.restype = i32

@@ -5,14 +5,18 @@ Counterpart of ``rich_text_to_image_tpu/ops/conv.py``: the same public
 layout (x ``[B,H,W,C]`` channels last, w ``[3,3,C,O]``, b ``[O]`` →
 ``[B,H,W,O]``), the same process-wide gate (off by default; the UNet's 3×3
 convolutions read it, ``models/unet.py Conv3x3``) and the same shape rules.
-The kernel (``csrc/conv.cu``) is an implicit GEMM over the 9 taps with no
-padded copy of the input, split over K through an fp32 workspace where the
-image is small; ``conv3x3_plain`` beside it is the JAX kernel's
-own formulation in PyTorch. The wrapper takes the plain version only for a
-tensor on the CPU; on a CUDA tensor it launches the kernel or raises.
+The kernel (``csrc/conv.cu``) is an implicit GEMM over the 9 taps on
+Hopper's warpgroup product, with no padded copy of the input, split over K
+through an fp32 workspace where the image is small; its tile and the split
+are chosen here (``conv_tile``, ``k_splits``); ``conv3x3_plain`` beside it
+is the JAX kernel's own formulation in PyTorch. The wrapper takes the plain
+version only for a tensor on the CPU; on a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -50,7 +54,7 @@ def conv3x3_supported(x_shape, w_shape) -> bool:
     ``[3,3,C,O]`` weight, H and W at least 8, C and O multiples of 64. The
     JAX gate also asks whether its tiles fit the TPU's fast memory
     (``_pick_tiles``); that is the TPU's limit and does not carry over: the
-    Hopper kernel's tile is fixed and fits at every C."""
+    Hopper kernel's tiles fit at every C."""
     if len(w_shape) != 4 or tuple(w_shape[:2]) != (3, 3):
         return False
     _, H, W, C = x_shape
@@ -81,22 +85,55 @@ def pack_weight(weight: torch.Tensor) -> torch.Tensor:
     return weight.permute(2, 3, 1, 0).contiguous()
 
 
-# The kernel's tile (csrc/conv.cu): 128 pixels x 64 output channels a CTA,
-# 64 input channels a step; an H100 has 132 SMs.
-_TILE_M, _TILE_N, _TILE_K = 128, 64, 64
+# The kernel's tiles (csrc/conv.cu): 128 or 256 pixels x 160, 128 or 64
+# output channels a CTA, 64 input channels a step; an H100 has 132 SMs, and a
+# CTA has one to itself.
+_TILE_K = 64
 _SMS = 132
+MAX_SPLITS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(m: int, c: int, o: int) -> tuple[int, int, int]:
+    """(pixels a CTA, output channels a CTA, ranges of steps) for M = B*H*W
+    pixels, C inputs and O outputs.
+
+    The N tile is the widest of 160, 128, 64 that divides O: 160 for the
+    SD-1.5 widths 320, 640 and 1280. The M tile and the split over K are
+    those a cost model rates cheapest, fitted to the card's times at the
+    UNet's shapes (within 4% of the best measured choice at each): the CTAs
+    run in waves of one an SM; a wave takes a CTA's steps plus 2 for its
+    start and end; a 256-pixel tile's step takes 1.9 times a 128-pixel
+    tile's (it moves 10 KB out of L2 per MFLOP, not 14); a split costs a
+    pass over its fp32 partial sums. Where the tiles alone give every SM a
+    CTA there is one range; a range is never empty."""
+    tile_n = 160 if o % 160 == 0 else 128 if o % 128 == 0 else 64
+    steps = 9 * (c // _TILE_K)
+    best = None
+    for tile_m in (128, 256) if tile_n > 64 else (128,):
+        tiles = -(-m // tile_m) * (o // tile_n)
+        for splits in range(1, MAX_SPLITS + 1 if tiles < _SMS else 2):
+            per = -(-steps // splits)
+            if per * (splits - 1) >= steps:  # a range would be empty
+                continue
+            waves = -(-tiles * splits // _SMS)
+            cost = waves * (per + 2) * (1.9 if tile_m == 256 else 1.0)
+            if splits > 1:
+                cost += 4.0 * splits * m * o / (128 * 160 * _SMS)
+            if best is None or cost < best[0]:
+                best = (cost, tile_m, tile_n, splits)
+    return best[1:]
+
+
+def conv_tile(m: int, c: int, o: int) -> tuple[int, int]:
+    """The kernel's (pixels, output channels) a CTA; see ``_plan``."""
+    return _plan(m, c, o)[:2]
 
 
 def k_splits(m: int, c: int, o: int) -> int:
-    """Into how many ranges the kernel cuts its 9*C/64 steps. One where the
-    tiles alone give every SM a CTA (splitting measured slower there); else
-    enough for about two CTAs an SM, at most 8, and never ranges shorter
-    than 8 steps."""
-    tiles = -(-m // _TILE_M) * (o // _TILE_N)
-    if tiles >= _SMS:
-        return 1
-    steps = 9 * (c // _TILE_K)
-    return max(1, min(-(-2 * _SMS // tiles), 8, steps // 8))
+    """Into how many ranges the kernel cuts its 9*C/64 steps; see
+    ``_plan``."""
+    return _plan(m, c, o)[2]
 
 
 def conv3x3(x, w, b):
@@ -119,17 +156,17 @@ def conv3x3(x, w, b):
     O = w.shape[3]
     if b.shape != (O,):
         raise ValueError(f"conv3x3: bias {tuple(b.shape)} for {O} channels")
-    if B * H * W * max(C, O) >= 2**31:
+    if B * H * W * max(C, O) >= 2**31 or max(H, W) >= 2**14:
         raise ValueError("conv3x3: tensor too large for the kernel's indices")
     from .build import library
 
     out = torch.empty((B, H, W, O), dtype=x.dtype, device=x.device)
-    splits = k_splits(B * H * W, C, O)
+    tile_m, tile_n, splits = _plan(B * H * W, C, O)
     ws = (torch.empty((splits, B * H * W, O), dtype=torch.float32,
                       device=x.device) if splits > 1 else None)
     err = library().rtt_conv3x3_fwd(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-        ws.data_ptr() if ws is not None else None, splits,
+        ws.data_ptr() if ws is not None else None, splits, tile_m, tile_n,
         B, H, W, C, O, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3x3: CUDA launch failed with error {err}")

@@ -18,17 +18,25 @@ work=$(mktemp -d) || exit 1
 trap 'rm -rf "$work"' EXIT
 
 # name | file under rich_text_to_image_tpu_torch/csrc | sed expression
-mutants='attn_ragged_mask|attention.cu|s/col < kv_len ? s\[nb\]\[e\] \* scale_log2 : -INFINITY/s[nb][e] * scale_log2/
+mutants='attn_ragged_mask|attention.cu|s/s\[4 \* i + e\] = col < skv ? s\[4 \* i + e\] : -INFINITY;/s[4 * i + e] = s[4 * i + e];/
+attn_v_descriptor|attention.cu|s/dv + kt \* (16 \* SWZ_ROW >> 4)/dv + kt * (8 * SWZ_ROW >> 4)/
+avgp_ragged_mask|attention.cu|s/col < kv_len ? s\[nb\]\[e\] \* scale_log2 : -INFINITY/s[nb][e] * scale_log2/
 stream_ragged_mask|attention_stream.cu|s/live ? s\[mi\]\[nb\]\[e\] \* scale_log2 : -INFINITY/s[mi][nb][e] * scale_log2/
-conv_columns_wrap|conv.cu|s/ww >= 0 \&\& ww < W;/a_pix[i] + dy * W + dx >= 0 \&\& a_pix[i] + dy * W + dx < M;/
-conv_taps_mirrored|conv.cu|s/dx = tap % 3 - 1;/dx = 1 - tap % 3;/'
+conv_columns_wrap|conv.cu|s/ww >= 0 \&\& ww < W;/a_off[i] + shift >= 0 \&\& a_off[i] + shift < M * C;/
+conv_taps_mirrored|conv.cu|s/dx = tap % 3 - 1;/dx = 1 - tap % 3;/
+conv_swizzle|conv.cu|s/swz_offset((t >> 3) + 32 \* i, a_chunk)/swz_offset((t >> 3) + 32 * i, a_chunk ^ 1)/'
 
-# attn_ragged_mask: the full-row kernels score the zero-filled keys past a
+# attn_ragged_mask: attn_fwd_kernel scores the zero-filled keys past a
 #   ragged end instead of masking them.
+# attn_v_descriptor: attn_fwd_kernel's P.V product steps its V descriptor by
+#   8 keys where a product is 16 deep, so it multiplies by the wrong keys.
+# avgp_ragged_mask: the ragged-end mask dropped in the capture kernel.
 # stream_ragged_mask: the same in the streaming kernel.
 # conv_columns_wrap: a tap that leaves the image sideways reads the
 #   neighbouring image row instead of zero (still inside the tensor).
 # conv_taps_mirrored: the three taps of each kernel row in reverse order.
+# conv_swizzle: the activation tile's 16-byte chunks land at the swizzled
+#   place of their neighbour, so channels meet the wrong weights.
 
 want=${*:-$(printf '%s\n' "$mutants" | cut -d'|' -f1)}
 bad=0

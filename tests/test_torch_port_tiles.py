@@ -1,0 +1,144 @@
+"""The Python rules that pick the tiles of the port's wgmma kernels.
+
+``attn_fwd_kernel`` and ``conv3x3_kernel`` are built for a few tile shapes;
+which one a launch takes is decided in Python (``ops/attention._fwd_tile``,
+``ops/conv._plan``) and passed to the C entry, so the rules can be held here,
+on the CPU, over the shapes the paths of ``chip_smoke.py`` give the kernels:
+
+  * attention: the query rows a CTA (64, 128 or 192: one to three
+    warpgroups) are those with the least waves x cost a wave, 64 only where
+    64-row CTAs all run at once; the keys a tile are a pair the CUDA source
+    builds;
+  * convolution: the N tile is 160 at the SD-1.5 widths, else 128 or 64,
+    and always divides O; the (M tile, N tile) pair is one the CUDA source
+    builds; the split over K leaves no range empty, has at most as many
+    ranges as steps, and is one range wherever the tiles alone give every
+    SM a CTA.
+"""
+
+import importlib.util
+import os
+import re
+
+import pytest
+
+from rich_text_to_image_tpu_torch.ops import attention as A
+from rich_text_to_image_tpu_torch.ops import conv as CV
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(ROOT, "rich_text_to_image_tpu_torch", "csrc")
+SMS = 132
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)  # imports the standard library only
+    return mod
+
+
+SMOKE = _smoke()
+ATTN_SHAPES = sorted({(b, h, s, d) for _, _, b, h, s, d, bucket, _
+                      in SMOKE.ATTN_CASES if bucket in ("full", "full_t")})
+CONV_SHAPES = [(b, r, c, o) for b in (1, 2, 4, 6)
+               for r, c, o in SMOKE.SD15_CONV_SHAPES]
+
+
+def _source(name):
+    with open(os.path.join(CSRC, name), encoding="utf-8") as f:
+        return f.read()
+
+
+def _built_keys(dp: int, block_m: int):
+    """The keys a tile that ``launch_fwd`` (csrc/attention.cu) builds for a
+    padded head dim and a row count (None: not built), read from its
+    constants."""
+    src = _source("attention.cu")
+    assert "constexpr int TK1 = DP == 80 ? 128 : 64;" in src
+    assert "constexpr int TK2 = DP == 48 ? 128 : 64;" in src
+    assert re.search(r"if constexpr \(DP <= 80\) \{\s*RTT_FWD_TILE\(64, 3\)",
+                     src)
+    if block_m == 64:
+        return 128 if dp == 80 else 64
+    if block_m == 128:
+        return 128 if dp == 48 else 64
+    return 64 if block_m == 192 and dp <= 80 else None
+
+
+def _waves(b, h, s, block_m):
+    return -(-(-(-s // block_m) * b * h) // SMS)
+
+
+@pytest.mark.parametrize("b,h,s,d", ATTN_SHAPES)
+def test_attention_tile_over_the_paths_shapes(b, h, s, d):
+    block_m, block_k = A._fwd_tile(b, h, s, d)
+    dp = 48 if d <= 48 else 80 if d <= 80 else 160  # RTT_DISPATCH
+    assert block_k == _built_keys(dp, block_m)  # a pair that is built
+    cost = {m: _waves(b, h, s, m) * c for m, c in A._WAVE_COST.items()
+            if _built_keys(dp, m) is not None}
+    assert cost[block_m] == min(cost.values())
+    if block_m == 64:
+        # the smallest CTA only where it gives every CTA an SM of its own,
+        # or where the larger ones' extra waves cost more
+        assert _waves(b, h, s, 64) == 1 or cost[64] < cost[128]
+
+
+def test_attention_tile_rule_at_its_edge():
+    # 132 CTAs of 64 rows run at once, one an SM: the smallest CTA
+    assert A._fwd_tile(1, 4, 33 * 64, 40)[0] == 64
+    # the main path's shapes: three warpgroups at 64^2 (352 CTAs in 3 waves
+    # against 512 in 4), two at 32^2 (128 CTAs in one wave), and never three
+    # above head dim 80
+    assert A._fwd_tile(2, 8, 4096, 40) == (192, 64)
+    assert A._fwd_tile(2, 8, 1024, 80) == (128, 64)
+    assert A._fwd_tile(2, 8, 576, 160) == (128, 64)
+    assert all(A._fwd_tile(b, 8, s, 160)[0] < 192
+               for b in (1, 2, 4, 6) for s in (576, 1024, 2304, 4096))
+    # [4,8,576,160]: 288 CTAs of 64 rows in 3 waves measured faster than 160
+    # of 128 rows in 2
+    assert A._fwd_tile(4, 8, 576, 160) == (64, 64)
+
+
+def _built_conv_tiles():
+    return {(int(m), int(n)) for m, n in re.findall(
+        r"RTT_CONV_TILE\((\d+), (\d+)\)", _source("conv.cu"))}
+
+
+@pytest.mark.parametrize("b,r,c,o", CONV_SHAPES)
+def test_conv_plan_over_the_unets_shapes(b, r, c, o):
+    m = b * r * r
+    tile_m, tile_n = CV.conv_tile(m, c, o)
+    assert tile_n == 160 and o % tile_n == 0  # 320, 640, 1280
+    assert (tile_m, tile_n) in _built_conv_tiles()
+    splits, steps = CV.k_splits(m, c, o), 9 * c // 64
+    assert 1 <= splits <= min(steps, CV.MAX_SPLITS)
+    per = -(-steps // splits)
+    assert per * (splits - 1) < steps  # no range is empty
+    if -(-m // tile_m) * (o // tile_n) >= SMS:
+        assert splits == 1
+
+
+@pytest.mark.parametrize("o,want", [(64, 64), (128, 128), (192, 64),
+                                    (256, 128), (384, 128), (448, 64),
+                                    (960, 160), (1280, 160)])
+def test_conv_n_tile_divides_o(o, want):
+    for m, c in ((117, 640), (1536, 64), (8192, 320)):
+        tile_m, tile_n = CV.conv_tile(m, c, o)
+        assert tile_n == want and o % tile_n == 0
+        assert (tile_m, tile_n) in _built_conv_tiles()
+        splits, steps = CV.k_splits(m, c, o), 9 * c // 64
+        assert 1 <= splits <= steps
+        assert -(-steps // splits) * (splits - 1) < steps
+
+
+def test_conv_plan_follows_the_measured_choices():
+    """The choices the cost model was fitted to (PERF.md): one range where a
+    128-row tile nearly fills the card, 256-row tiles where M is large, a
+    split where the image is small."""
+    assert CV._plan(2 * 64 * 64, 320, 320) == (128, 160, 1)
+    assert CV._plan(4 * 64 * 64, 320, 320) == (256, 160, 1)
+    assert CV._plan(2 * 32 * 32, 1920, 640) == (256, 160, 4)
+    assert CV._plan(2 * 8 * 8, 2560, 1280) == (128, 160, 8)
+    # a single step cannot be split
+    assert CV.k_splits(64, 64, 64) <= 9
