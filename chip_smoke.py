@@ -57,6 +57,8 @@ OUT_RTOL = 2e-2  # bf16 output, relative to max|o_ref|: the plain version's
 #                  own bf16 rounding (of p and of o) is ~0.4% of it against
 #                  fp64; an unmasked ragged tail moves it by ~90% (_qkv)
 PAVG_RTOL = 1e-3  # head-averaged probs, relative to their max
+LSE_ATOL = 1e-3  # the capture's log2-sum-exp, log2 units (0.07% in p): both
+#                  sides sum fp32 exponentials of the same fp32 scores
 SCORE_STD = 2.0  # peaked rows, as in a trained UNet, not unit-normal's
 SCORE_SHIFT = 10.0  # every real key's score lowered by this; see _qkv
 UNET_RTOL = 5e-2  # full bf16 UNet, kernel vs plain attention, rel. to max|ref|
@@ -86,10 +88,8 @@ KERNELS = {
                           ATTN_SRC, (2, 8, 1024, 80)),
     "K3_attn_avgp_32x32": ("rich_text_to_image_tpu/ops/attention.py:181",
                            ATTN_SRC, (2, 8, 1024, 80)),
-    "K4_attn_stream_96x96": (
-        "rich_text_to_image_tpu/ops/attention.py:302",
-        "rich_text_to_image_tpu_torch/csrc/attention_stream.cu",
-        (2, 8, 9216, 40)),
+    "K4_attn_stream_96x96": ("rich_text_to_image_tpu/ops/attention.py:302",
+                             ATTN_SRC, (2, 8, 9216, 40)),
     "K5_conv3x3": ("rich_text_to_image_tpu/ops/conv.py:50",
                    "rich_text_to_image_tpu_torch/csrc/conv.cu",
                    (2, 64, 64, 320, 320)),  # B, H, W, C, O
@@ -224,9 +224,10 @@ def _bound_ms(b, h, s, d, pavg: bool, sm_hz: float):
 # (the only one that captures, so K3 sees no other), R+2 in the rich pass and
 # R+4 in the rich pass with injection (512^2 only). Besides: ragged S, the
 # 1280-channel level's head dim 160, a head dim that runs at a wider
-# instantiation (64 at 80), the streaming kernel with named blocks, and for
-# attn_fwd_kernel's tiles of 64, 128 and 192 rows: S that is no multiple of
-# the tile, and batch 1 shapes small enough for the 64-row tile.
+# instantiation (64 at 80), the streaming bucket at the 128^2 level of a
+# 1024^2 sample and with named blocks, and for attn_fwd_kernel's tiles of
+# 64, 128 and 192 rows: S that is no multiple of the tile, and batch 1
+# shapes small enough for the 64-row tile.
 _RICH, _INJ = REGIONS + 2, REGIONS + 4
 ATTN_CASES = [
     ("K1_attn_fwd_64x64", "fwd", 2, 8, 4096, 40, "full", {}),
@@ -255,12 +256,46 @@ ATTN_CASES = [
     ("K4_attn_stream_96x96", "fwd", 2, 8, 9216, 40, "stream", {}),
     ("K4_attn_stream_96x96", "fwd", _RICH, 8, 9216, 40, "stream", {}),
     ("K4_attn_stream_96x96", "fwd", 2, 8, 9000, 40, "stream", {}),
+    ("K4_attn_stream_96x96", "fwd", 2, 8, 16384, 40, "stream", {}),
     ("K4_attn_stream_96x96", "fwd", 1, 2, 16384, 40, "stream", {}),
     ("K4_attn_stream_96x96", "fwd", 2, 8, 1024, 80, "stream",
      {"block_q": 128, "block_k": 128}),
     ("K4_attn_stream_96x96", "fwd", 2, 8, 1000, 160, "stream",
      {"block_q": 128, "block_k": 64}),
 ]
+
+
+def _capture_pieces(q, k, v, scale, line: str) -> str:
+    """The capture's two launches, each against its plain version on the
+    same inputs: ``flash_attention_lse`` (output and log2-sum-exp), and
+    ``avg_probs_from_lse`` given the plain version's log2-sum-exp. Returns
+    what to add to the case's line; raises on a disagreement."""
+    import torch
+
+    from rich_text_to_image_tpu_torch.ops import attention as A
+
+    (o, lse), (o_ref, lse_ref) = (A.flash_attention_lse(q, k, v, scale),
+                                  A.flash_attention_lse_plain(q, k, v, scale))
+    p = A.avg_probs_from_lse(q, k, lse_ref, scale)
+    p_ref = A.avg_probs_from_lse_plain(q, k, lse_ref, scale)
+    torch.cuda.synchronize()
+    o_err = ((o.float() - o_ref.float()).abs().max()
+             / o_ref.float().abs().max()).item()
+    lse_err = (lse - lse_ref).abs().max().item()
+    p_err = ((p - p_ref).abs().max() / p_ref.abs().max()).item()
+    ms_lse = _time_ms(lambda: A.flash_attention_lse(q, k, v, scale), 20,
+                      plug=True)
+    ms_p = _time_ms(lambda: A.avg_probs_from_lse(q, k, lse, scale), 20,
+                    plug=True)
+    add = (f"; pieces: lse out rel={o_err:.3e} lse max|d|={lse_err:.3e} "
+           f"(tol {LSE_ATOL} log2 units) ms={ms_lse:.4f}, pavg from lse "
+           f"rel={p_err:.3e} ms={ms_p:.4f} rows/CTA="
+           f"{A._pavg_tile(q.shape[0], q.shape[2], k.shape[2], q.shape[3])}")
+    if not (o_err <= OUT_RTOL and lse_err <= LSE_ATOL
+            and p_err <= PAVG_RTOL):
+        raise AssertionError(f"a piece of the capture disagrees with its "
+                             f"plain version: {line}{add}")
+    return add
 
 
 def attention_kernel_phase(cases=ATTN_CASES) -> dict:
@@ -270,9 +305,8 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
     import torch.nn.functional as F
 
     from rich_text_to_image_tpu_torch.ops import attention as A
-    from rich_text_to_image_tpu_torch.ops import build
 
-    rows = {}
+    rows, k4_tiles = {}, {}
     sm_hz = _max_sm_hz()
     for name, kind, b, h, s, d, bucket, kw in cases:
         q, k, v = _qkv(b, h, s, d, seed=s + d + b)
@@ -308,16 +342,20 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
         sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=scale), 20, plug=True)
         bound, bound_by, unit = _bound_ms(b, h, s, d, avgp, sm_hz)
-        tile = (f" tile={A._fwd_tile(b, h, s, d)}"
-                if bucket in ("full", "full_t") else "")
+        tile = A._fwd_tile(b, h, s, d, A._stream_tile(kw.get(
+            "block_k", 512)) if bucket == "stream" else 128)
+        if bucket == "stream" and not kw:
+            k4_tiles[f"[{b},{h},{s},{d}]"] = tile
         line = (f"kernel {name} B={b} H={h} S={s} d={d} {kw or ''} -> "
-                f"{bucket}{tile}: max|d out|={err:.3e} "
+                f"{bucket} tile={tile}: max|d out|={err:.3e} "
                 f"= {err / o_max:.3e} of max|o_ref| {o_max:.3f} "
                 f"(tol {OUT_RTOL} of it)"
                 + (f" pavg rel={p_err:.3e} (tol {PAVG_RTOL})" if avgp else "")
                 + f" ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f}"
                 f" ({bound_by}: {unit} at {sm_hz / 1e6:.0f} MHz) "
                 f"sdpa_ms={sdpa_ms:.4f}")
+        if avgp and ok:
+            line += _capture_pieces(q, k, v, scale, line)
         print(line, flush=True)
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version: "
@@ -333,21 +371,8 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
                 "library_ms": None if avgp else sdpa_ms,
                 "shape": list(KERNELS[name][2]),
             }
-    # the streaming kernel beside the full-row kernel at the same shape
-    q, k, v = _qkv(2, 8, 9216, 40, seed=1)
-    lib = build.library()
-    out = A._out_like(q)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 2, 8,
-            9216, 9216, 40, *A._strides(q), *A._strides(k), *A._strides(v),
-            *A._strides(out), float(40 ** -0.5 * A._LOG2E))
-    st = torch.cuda.current_stream().cuda_stream
-    t = {"attn_fwd_kernel": _time_ms(lambda: lib.rtt_attn_fwd(
-        *args, *A._fwd_tile(2, 8, 9216, 40), st), 20, plug=True)}
-    for tk in (64, 128):
-        t[f"attn_stream_kernel tk={tk}"] = _time_ms(
-            lambda: lib.rtt_attn_stream_fwd(*args, tk, st), 20, plug=True)
-    print("kernel K4 against K1's kernel at [2,8,9216,40], ms: "
-          + json.dumps(t), flush=True)
+    print("kernel K4 tiles (query rows a CTA, keys a tile) picked by "
+          "ops/attention._fwd_tile: " + json.dumps(k4_tiles), flush=True)
     q, k, v = _qkv(2, 8, 4096, 40, seed=2)
     print("kernel K1 wrapper host us a launch at [2,8,4096,40]: "
           f"{_host_us(lambda: A.flash_attention(q, k, v, 40 ** -0.5)):.2f}",

@@ -54,7 +54,9 @@ __device__ __forceinline__ uint32_t swz_offset(int r, int j) {
   return (uint32_t)(r * SWZ_ROW + ((j ^ (r & 7)) << 4));
 }
 
-// cp_async16 (common.cuh) to a shared-memory address.
+// 16 bytes from device to shared memory without passing through registers;
+// with valid == false nothing is read and the 16 bytes are zero-filled (src
+// must still be an address inside the tensor).
 __device__ __forceinline__ void cp_async16_to(uint32_t dst, const void* src,
                                               bool valid) {
   const int n = valid ? 16 : 0;
@@ -83,18 +85,22 @@ __device__ __forceinline__ void load_rows_swz(uint32_t dst, const bf16* src,
   }
 }
 
+constexpr uint32_t BF16_ONE = 0x3F80u;  // bf16 1.0 in a word's low half
+
 // Zeros in the chunks of columns d .. DP of the tile of ROWS rows at
-// `tile_s`, by NT threads of which this is thread t.
+// `tile_s`, by NT threads of which this is thread t; with lead = BF16_ONE,
+// column d itself holds ones.
 template <int DP, int ROWS, int NT>
-__device__ __forceinline__ void zero_pad_swz(uint32_t tile_s, int d, int t) {
+__device__ __forceinline__ void zero_pad_swz(uint32_t tile_s, int d, int t,
+                                             uint32_t lead) {
   constexpr int CH = DP / 8;
   for (int idx = t; idx < ROWS * CH; idx += NT) {
     const int r = idx / CH, j = idx % CH;
     if (j * 8 >= d)
-      asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %2, %2};\n" ::"r"(
                        tile_s + (j >> 3) * (ROWS * SWZ_ROW) +
                        swz_offset(r, j & 7)),
-                   "r"(0)
+                   "r"(j * 8 == d ? lead : 0u), "r"(0)
                    : "memory");
   }
 }
@@ -366,6 +372,29 @@ __device__ __forceinline__ void wgmma_ss_n160(float* d, uint64_t desc_a,
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
         "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t a[4],
+    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
 template <int TRANS_B>

@@ -5,20 +5,23 @@ Counterpart of ``rich_text_to_image_tpu/ops/attention.py``. Each kernel
 wrapper has a plain PyTorch version beside it that computes the same
 function (einsum, softmax and einsum with fp32 statistics). A wrapper takes
 the plain version only for a tensor that lies on the CPU; for a CUDA tensor
-it launches its kernel (``csrc/attention.cu``, ``csrc/attention_stream.cu``)
-or raises.
+it launches its kernel (``csrc/attention.cu``) or raises.
 
   * ``flash_attention`` — softmax(Q·Kᵀ·scale)·V over latent tokens. One
-    CUDA kernel serves both of the JAX package's full-row buckets: the
-    classic ``_full_kernel`` (SD 64², d=40) and the transposed
-    ``_full_kernel_t`` (d=80, S≤1024, SD 32²). Rows too long for the JAX
-    package's full-row layout (SD at 768² and above), and calls that name
-    ``block_q``, go to the streaming kernel (``_flash_kernel``). The JAX
+    CUDA kernel serves the three buckets of the JAX dispatch: the classic
+    ``_full_kernel`` (SD 64², d=40), the transposed ``_full_kernel_t``
+    (d=80, S≤1024, SD 32²), and the online ``_flash_kernel`` for rows too
+    long for the JAX package's full-row layout (SD at 768² and above) or
+    calls that name ``block_q``. The JAX split is about a TPU core's
+    memory; on Hopper every bucket streams K/V through the same kernel. The
     dispatch rule is kept so that both packages name the same kernel for
     the same shape, and to count launches per bucket.
   * ``flash_attention_avg_probs`` — the same output plus head-averaged
     probabilities [B,Sq,Skv] fp32 (``_full_kernel_avgp``), for the capture
-    layers, without per-head probabilities in device memory.
+    layers, without per-head probabilities in device memory. Two launches:
+    ``flash_attention_lse`` (the output and each row's log2-sum-exp), then
+    ``avg_probs_from_lse`` (the head average from the scores and the
+    log2-sum-exp).
   * ``attention_with_probs`` / ``cross_attention`` — plain paths: explicit
     probabilities, and text cross-attention (77 keys) with the font-size
     reweighting as a log-bias plus a sign mask.
@@ -38,8 +41,10 @@ import torch
 _LOG2E = 1.4426950408889634
 
 # Launch counts: one per kernel launch, added by the wrapper right where it
-# launches (never by the plain versions). "full" and "full_t" are the two
-# JAX buckets served by the same kernel, "stream" the streaming kernel.
+# launches (never by the plain versions). "full", "full_t" and "stream" are
+# the three JAX buckets served by the same kernel; "avgp" counts the capture,
+# one per ``flash_attention_avg_probs`` call, where its head-average kernel
+# launches (its forward launch is part of it and counts under no bucket).
 LAUNCHES = {"full": 0, "full_t": 0, "avgp": 0, "stream": 0}
 
 
@@ -122,6 +127,27 @@ def flash_attention_avg_probs_plain(q, k, v, scale: float | None = None):
     return out, p.mean(dim=1)
 
 
+def flash_attention_lse_plain(q, k, v, scale: float | None = None):
+    """(out, lse): the output, and each row's log2-sum-exp of the scaled
+    scores, log2(sum_j 2^(s_j·scale·log2 e)), fp32 [B,H,Sq]: the first
+    piece of the capture."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _scores(q, k, scale)
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1).to(
+        q.dtype).float(), v.float()).to(q.dtype)
+    return out, torch.logsumexp(s, dim=-1) * _LOG2E
+
+
+def avg_probs_from_lse_plain(q, k, lse, scale: float | None = None):
+    """The head average [B,Sq,Skv] fp32 of p = 2^(s·scale·log2 e − lse):
+    the second piece of the capture, given ``flash_attention_lse``'s lse."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    s = _scores(q, k, scale * _LOG2E)
+    return torch.exp2(s - lse[..., None]).mean(dim=1)
+
+
 def flash_attention_stream_plain(q, k, v, scale: float | None = None,
                                  block_k: int = 512, block_q: int = 2048):
     """The streaming kernel's computation step by step: an online softmax
@@ -196,42 +222,73 @@ def _raise_if(err: int, name: str):
 _SMS = 132  # streaming multiprocessors of an H100
 
 
-# What a wave of attn_fwd_kernel's CTAs costs, by query rows a CTA (one, two
-# or three warpgroups that multiply), in units of a 64-row CTA's time: more
-# warpgroups an SM keep its special-function units (the exponentials) busier,
-# so the cost grows slower than the rows. Fitted to the card's times at the
-# paths' shapes (PERF.md).
+def _padded(d: int) -> int:
+    # the head dim the kernels are instantiated for (RTT_DISPATCH)
+    return 48 if d <= 48 else 80 if d <= 80 else 160
+
+
+# The tiles ``csrc/attention.cu launch_fwd`` builds, by padded head dim:
+# {query rows a CTA (one, two or three warpgroups that multiply): keys a
+# K/V tile}, the keys being what measured fastest for that row count. Three
+# warpgroups are not built above head dim 80 (registers).
+_FWD_TILES = {48: {64: 64, 128: 128, 192: 64},
+              80: {64: 128, 128: 64, 192: 64},
+              160: {64: 64, 128: 64}}
+
+# What a wave of attn_fwd_kernel's CTAs costs, by query rows a CTA, in units
+# of a 64-row CTA's time: more warpgroups an SM keep its special-function
+# units (the exponentials) busier, so the cost grows slower than the rows.
+# Fitted to the card's times at the paths' shapes (PERF.md).
 _WAVE_COST = {64: 1.0, 128: 1.65, 192: 2.1}
 
 
 @functools.lru_cache(maxsize=None)
-def _fwd_tile(b: int, h: int, sq: int, d: int) -> tuple[int, int]:
-    """(query rows a CTA, keys a K/V tile) of ``attn_fwd_kernel``.
+def _fwd_tile(b: int, h: int, sq: int, d: int,
+              max_keys: int = 128) -> tuple[int, int]:
+    """(query rows a CTA, keys a K/V tile) of ``attn_fwd_kernel``, among
+    the built tiles (``_FWD_TILES``) of at most ``max_keys`` keys.
 
     The CTAs run in waves of one an SM. The rows are those for which the
     waves times a wave's cost (``_WAVE_COST``) are least: 192 or 128 rows at
     the paths' shapes, 64 where that already gives every CTA an SM of its
-    own; three warpgroups are not built above head dim 80 (registers). The
-    keys a tile are what measured fastest for the padded head dim (48, 80,
-    160) and row count; ``csrc/attention.cu launch_fwd`` builds these pairs
-    only."""
+    own."""
+    tiles = {m: tk for m, tk in _FWD_TILES[_padded(d)].items()
+             if tk <= max_keys}
+
     def cost(m):
         ctas = -(-sq // m) * b * h
         return -(-ctas // _SMS) * _WAVE_COST[m]
 
-    block_m = min((m for m in _WAVE_COST if m < 192 or d <= 80),
-                  key=lambda m: (cost(m), m))
-    if d > 80 or block_m == 192:
-        return block_m, 64
-    if d > 48:
-        return block_m, (128 if block_m == 64 else 64)
-    return block_m, (64 if block_m == 64 else 128)
+    block_m = min(tiles, key=lambda m: (cost(m), m))
+    return block_m, tiles[block_m]
 
 
 def _stream_tile(block_k: int) -> int:
-    # the streaming kernel's shared-memory tile: the caller's block_k where
-    # it is a multiple of 64, up to the kernel's 128 keys
+    """The most keys a K/V tile that the caller's ``block_k`` (the JAX
+    online kernel's key block) allows the streaming bucket: ``block_k``
+    where it is a multiple of 64, up to the kernel's 128, else 64."""
     return 128 if block_k >= 128 and block_k % 64 == 0 else 64
+
+
+# What a wave of attn_pavg_kernel's CTAs costs, by query rows a CTA (one or
+# two warpgroups that multiply), in units of a 64-row CTA's time. Fitted to
+# the card's times (PERF.md).
+_PAVG_WAVE_COST = {64: 1.0, 128: 1.5}
+_PAVG_KEYS = 128  # keys a CTA of attn_pavg_kernel
+
+
+@functools.lru_cache(maxsize=None)
+def _pavg_tile(b: int, sq: int, skv: int, d: int) -> int:
+    """Query rows a CTA of ``attn_pavg_kernel`` (64 or 128): the least waves
+    times a wave's cost, the larger on a tie; 64 above head dim 80, where
+    two warpgroups are not built (registers)."""
+    def cost(m):
+        ctas = -(-sq // m) * -(-skv // _PAVG_KEYS) * b
+        return -(-ctas // _SMS) * _PAVG_WAVE_COST[m]
+
+    if _padded(d) > 80:
+        return 64
+    return min(_PAVG_WAVE_COST, key=lambda m: (cost(m), -m))
 
 
 def flash_attention(q, k, v, scale: float | None = None,
@@ -240,10 +297,9 @@ def flash_attention(q, k, v, scale: float | None = None,
 
     As in the JAX package, a shape whose K/V row is too long for the
     full-row layout (``_fits_full_row``), or a call that names ``block_q``,
-    takes the streaming kernel, whose K/V tile is ``block_k`` keys where
-    that is a multiple of 64, at most 128; ``block_q`` itself only selects
-    the path, since the streaming kernel's query tile is fixed at 128
-    rows."""
+    takes the streaming bucket: the same kernel, with K/V tiles of at most
+    ``_stream_tile(block_k)`` keys; ``block_q`` itself only selects the
+    bucket, since the kernel's query tile is ``_fwd_tile``'s."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     b, h, sq, d = q.shape
@@ -253,24 +309,30 @@ def flash_attention(q, k, v, scale: float | None = None,
         if bucket == "stream":
             return flash_attention_stream_plain(q, k, v, scale, block_k)
         return flash_attention_plain(q, k, v, scale)
-    _check("flash_attention", q, k, v)
-    if bucket != "stream" and not scale > 0:
-        raise ValueError("flash_attention: the kernel takes a positive scale")
+    max_keys = _stream_tile(block_k) if bucket == "stream" else 128
+    out = _launch_fwd("flash_attention", q, k, v, scale, None, max_keys)
+    LAUNCHES[bucket] += 1
+    return out
+
+
+def _launch_fwd(name, q, k, v, scale, lse, max_keys):
+    """attn_fwd_kernel on CUDA tensors into a new output; with ``lse`` (fp32
+    [B,H,Sq], contiguous) it also stores the rows' log2-sum-exp there."""
+    _check(name, q, k, v)
+    if not scale > 0:
+        raise ValueError(f"{name}: the kernel takes a positive scale")
     from .build import library
 
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
     out = _out_like(q)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, h, sq, skv, d,
-            *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-            float(scale * _LOG2E))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if bucket == "stream":
-        err = library().rtt_attn_stream_fwd(*args, _stream_tile(block_k),
-                                            stream)
-    else:
-        err = library().rtt_attn_fwd(*args, *_fwd_tile(b, h, sq, d), stream)
-    _raise_if(err, "flash_attention")
-    LAUNCHES[bucket] += 1
+    err = library().rtt_attn_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, h, sq, skv, d,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+        float(scale * _LOG2E), *_fwd_tile(b, h, sq, d, max_keys),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_if(err, name)
     return out
 
 
@@ -287,37 +349,75 @@ def avg_probs_kernel_fits(sq: int, skv: int, d: int) -> bool:
 
 def flash_attention_avg_probs(q, k, v, scale: float | None = None):
     """(out [B,H,Sq,D], head-averaged probs [B,Sq,Skv] fp32) without
-    per-head probabilities in device memory."""
+    per-head probabilities in device memory: ``flash_attention_lse``, then
+    ``avg_probs_from_lse``."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_avg_probs_plain(q, k, v, scale)
-    _check("flash_attention_avg_probs", q, k, v)
+    out, lse = flash_attention_lse(q, k, v, scale)
+    return out, avg_probs_from_lse(q, k, lse, scale)
+
+
+def flash_attention_lse(q, k, v, scale: float | None = None):
+    """(out [B,H,Sq,D], lse [B,H,Sq] fp32): ``attn_fwd_kernel`` storing each
+    row's log2-sum-exp of the scaled scores. The capture's first launch; it
+    is counted with the second, in ``avg_probs_from_lse``."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return flash_attention_lse_plain(q, k, v, scale)
+    b, h, sq, _ = q.shape
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    out = _launch_fwd("flash_attention_lse", q, k, v, scale, lse, 128)
+    return out, lse
+
+
+def avg_probs_from_lse(q, k, lse, scale: float | None = None):
+    """The head average [B,Sq,Skv] fp32 of 2^(s·scale·log2 e − lse) by
+    ``attn_pavg_kernel``, given the rows' log2-sum-exp ``lse`` [B,H,Sq]
+    fp32 (``flash_attention_lse``): each entry is written once, by the one
+    CTA that owns it, with no atomics."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return avg_probs_from_lse_plain(q, k, lse, scale)
+    _check("avg_probs_from_lse", q, k)
     b, h, sq, d = q.shape
     skv = k.shape[2]
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or tuple(lse.shape) != (b, h, sq) or not lse.is_contiguous()):
+        raise ValueError("avg_probs_from_lse: want lse fp32 [B,H,Sq], "
+                         f"contiguous, on q's device; got {lse.dtype} "
+                         f"{tuple(lse.shape)} on {lse.device}")
+    if not scale > 0:
+        raise ValueError("avg_probs_from_lse: the kernel takes a positive "
+                         "scale")
     if not avg_probs_kernel_fits(sq, skv, d):
         raise ValueError(f"capture kernel does not take S={sq}/{skv}, d={d}")
     from .build import library
 
-    out = _out_like(q)
     pavg = torch.empty((b, sq, skv), dtype=torch.float32, device=q.device)
-    err = library().rtt_attn_avgp_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        pavg.data_ptr(), b, h, sq, skv, d,
-        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-        float(scale * _LOG2E), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _raise_if(err, "flash_attention_avg_probs")
+    err = library().rtt_attn_pavg(
+        q.data_ptr(), k.data_ptr(), lse.data_ptr(), pavg.data_ptr(),
+        b, h, sq, skv, d, *_strides(q), *_strides(k), float(scale * _LOG2E),
+        _pavg_tile(b, sq, skv, d),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_if(err, "avg_probs_from_lse")
     LAUNCHES["avgp"] += 1
-    return out, pavg
+    return pavg
 
 
 # ------------------------------------------------------------- plain paths
+def _scores(q, k, scale: float):
+    return torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+
+
 def attention_with_probs(q, k, v, scale: float | None = None):
     """Explicit attention returning (out, probs [B,H,Sq,Skv] fp32)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = _scores(q, k, scale)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), v.float())
     return out.to(q.dtype), p

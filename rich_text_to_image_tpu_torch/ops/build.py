@@ -21,7 +21,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("attention.cu", "attention_stream.cu", "conv.cu")
+SOURCES = ("attention.cu", "conv.cu")
 HEADERS = ("common.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -89,24 +89,20 @@ class _Kernels:
 
     def __init__(self, paths: dict[str, str]):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        strides = [ctypes.c_longlong] * 12
+        strides = [ctypes.c_longlong] * 3
         attn = ctypes.CDLL(paths["attention.cu"])
-        stream = ctypes.CDLL(paths["attention_stream.cu"])
         conv = ctypes.CDLL(paths["conv.cu"])
-        self._libs = (attn, stream, conv)  # keep the handles alive
+        self._libs = (attn, conv)  # keep the handles alive
         self.rtt_attn_fwd = attn.rtt_attn_fwd
         self.rtt_attn_fwd.argtypes = (
-            [ptr] * 4 + [i32] * 5 + strides + [f32, i32, i32, ptr])
-        self.rtt_attn_avgp_fwd = attn.rtt_attn_avgp_fwd
-        self.rtt_attn_avgp_fwd.argtypes = (
-            [ptr] * 5 + [i32] * 5 + strides + [f32, ptr])
-        self.rtt_attn_stream_fwd = stream.rtt_attn_stream_fwd
-        self.rtt_attn_stream_fwd.argtypes = (
-            [ptr] * 4 + [i32] * 5 + strides + [f32, i32, ptr])
+            [ptr] * 5 + [i32] * 5 + strides * 4 + [f32, i32, i32, ptr])
+        self.rtt_attn_pavg = attn.rtt_attn_pavg
+        self.rtt_attn_pavg.argtypes = (
+            [ptr] * 4 + [i32] * 5 + strides * 2 + [f32, i32, ptr])
         self.rtt_conv3x3_fwd = conv.rtt_conv3x3_fwd
         self.rtt_conv3x3_fwd.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
-        for fn in (self.rtt_attn_fwd, self.rtt_attn_avgp_fwd,
-                   self.rtt_attn_stream_fwd, self.rtt_conv3x3_fwd):
+        for fn in (self.rtt_attn_fwd, self.rtt_attn_pavg,
+                   self.rtt_conv3x3_fwd):
             fn.restype = i32
 
 

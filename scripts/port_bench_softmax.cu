@@ -4,9 +4,15 @@
 // on each of the SM's four schedulers. Variants: the kernel's own (exp2 on
 // the special-function units, cvt.rn.bf16x2 for the probabilities), without
 // the conversion, with the conversion done by integer adds and a byte
-// permute, and with a half, a third or a quarter of the exponentials taken
-// by a degree-3 polynomial on the FMA units. Prints clocks a tile beside the
-// special-function units' floor (16 exp2 a clock an SM).
+// permute, with a half, a third or a quarter of the exponentials taken by a
+// degree-3 polynomial on the FMA units, without the row sum (as when the
+// P V product sums the probabilities into a column of ones), and with two
+// exponentials an instruction: ex2.approx.f16x2 on the arguments rounded to
+// f16 (then widened for the sum and packed to bf16), or ex2.approx.ftz.bf16x2
+// on arguments rounded to bf16 (the result is P's bf16 pair), each with and
+// without the row sum. Prints clocks a tile beside the special-function
+// units' floor (16 exp2 a clock an SM); the instructions the packed forms
+// compile to show in `cuobjdump -sass` (MUFU.EX2 lines).
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //        -o /tmp/port_bench_softmax scripts/port_bench_softmax.cu
@@ -19,7 +25,30 @@
 using namespace rtt;
 
 constexpr int TK = 64;
-enum Mode { KERNEL, NO_PACK, INT_PACK, POLY_HALF, POLY_THIRD, POLY_QUARTER };
+enum Mode { KERNEL, NO_PACK, INT_PACK, POLY_HALF, POLY_THIRD, POLY_QUARTER,
+            NO_SUM, F16X2, F16X2_NO_SUM, BF16X2, BF16X2_NO_SUM };
+
+// 2^a, 2^b with one instruction: the arguments rounded to f16 (f16x2) or
+// bf16 (bf16x2); returns the pair as it comes out, b in the high half.
+__device__ __forceinline__ uint32_t ex2_f16x2(float a, float b) {
+  uint32_t x, y;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;\n" : "=r"(x) : "f"(b), "f"(a));
+  asm("ex2.approx.f16x2 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t ex2_bf16x2(float a, float b) {
+  uint32_t x, y;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(x) : "f"(b), "f"(a));
+  asm("ex2.approx.ftz.bf16x2 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ void f16x2_to_f32(uint32_t x, float& a, float& b) {
+  asm("{\n.reg .f16 lo, hi;\nmov.b32 {lo, hi}, %2;\n"
+      "cvt.f32.f16 %0, lo;\ncvt.f32.f16 %1, hi;\n}\n"
+      : "=f"(a), "=f"(b) : "r"(x));
+}
 
 // 2^x for x <= 0 on the FMA units: the nearest integer through the float
 // format's magic number, a degree-3 polynomial on [-0.5, 0.5] (relative
@@ -57,28 +86,58 @@ __global__ void bench(long long* out, const float* in, float* sink, int reps) {
     const float mn1 = fmaxf(m1, quad_max(mx1) * scale);
     const float al0 = fast_exp2(m0 - mn0), al1 = fast_exp2(m1 - mn1);
     float ls0 = 0.f, ls1 = 0.f;
+    constexpr bool SUM = MODE != NO_SUM && MODE != F16X2_NO_SUM &&
+                         MODE != BF16X2_NO_SUM;
+    if constexpr (MODE == F16X2 || MODE == F16X2_NO_SUM) {
 #pragma unroll
-    for (int i = 0; i < TK / 2; ++i) {
-      const float e = fmaf(s[i], scale, (i & 2) ? -mn1 : -mn0);
-      s[i] = i % EVERY == EVERY - 1 ? poly_exp2(e) : fast_exp2(e);
-    }
+      for (int i = 0; i < TK / 4; ++i) {
+        const float mn = (i & 1) ? -mn1 : -mn0;
+        const uint32_t p = ex2_f16x2(fmaf(s[2 * i], scale, mn),
+                                     fmaf(s[2 * i + 1], scale, mn));
+        float a, b;
+        f16x2_to_f32(p, a, b);
+        if (SUM) (i & 1 ? ls1 : ls0) += a + b;
+        x ^= pack_bf16(a, b);
+        s[2 * i] = a;  // the next round's scores
+      }
+    } else if constexpr (MODE == BF16X2 || MODE == BF16X2_NO_SUM) {
 #pragma unroll
-    for (int i = 0; i < TK / 8; ++i) {
-      ls0 += s[4 * i] + s[4 * i + 1];
-      ls1 += s[4 * i + 2] + s[4 * i + 3];
+      for (int i = 0; i < TK / 4; ++i) {
+        const float mn = (i & 1) ? -mn1 : -mn0;
+        const uint32_t p = ex2_bf16x2(fmaf(s[2 * i], scale, mn),
+                                      fmaf(s[2 * i + 1], scale, mn));
+        const float a = __uint_as_float(p << 16);
+        if (SUM)
+          (i & 1 ? ls1 : ls0) += a + __uint_as_float(p & 0xFFFF0000u);
+        x ^= p;
+        s[2 * i] = a;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < TK / 2; ++i) {
+        const float e = fmaf(s[i], scale, (i & 2) ? -mn1 : -mn0);
+        s[i] = i % EVERY == EVERY - 1 ? poly_exp2(e) : fast_exp2(e);
+      }
+      if (SUM) {
+#pragma unroll
+        for (int i = 0; i < TK / 8; ++i) {
+          ls0 += s[4 * i] + s[4 * i + 1];
+          ls1 += s[4 * i + 2] + s[4 * i + 3];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < TK / 4; ++i) {
+        if (MODE == INT_PACK)
+          x ^= __byte_perm(__float_as_uint(s[2 * i]) + 0x8000u,
+                           __float_as_uint(s[2 * i + 1]) + 0x8000u, 0x7632);
+        else if (MODE != NO_PACK)
+          x ^= pack_bf16(s[2 * i], s[2 * i + 1]);
+      }
     }
     l0 = l0 * al0 + ls0;
     l1 = l1 * al1 + ls1;
     m0 = mn0;
     m1 = mn1;
-#pragma unroll
-    for (int i = 0; i < TK / 4; ++i) {
-      if (MODE == INT_PACK)
-        x ^= __byte_perm(__float_as_uint(s[2 * i]) + 0x8000u,
-                         __float_as_uint(s[2 * i + 1]) + 0x8000u, 0x7632);
-      else if (MODE != NO_PACK)
-        x ^= pack_bf16(s[2 * i], s[2 * i + 1]);
-    }
   }
   const long long t1 = clock64();
   float sum = l0 + l1 + m0 + m1;
@@ -119,5 +178,10 @@ int main() {
   run<POLY_HALF>("half of exp2 by polynomial");
   run<POLY_THIRD>("a third of exp2 by polynomial");
   run<POLY_QUARTER>("a quarter of exp2 by polynomial");
+  run<NO_SUM>("without the row sum (ones column)");
+  run<F16X2>("ex2.approx.f16x2, two a instruction");
+  run<F16X2_NO_SUM>("ex2.approx.f16x2, no row sum");
+  run<BF16X2>("ex2.approx.ftz.bf16x2, two a instruction");
+  run<BF16X2_NO_SUM>("ex2.approx.ftz.bf16x2, no row sum");
   return 0;
 }

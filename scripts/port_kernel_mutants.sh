@@ -20,18 +20,21 @@ trap 'rm -rf "$work"' EXIT
 # name | file under rich_text_to_image_tpu_torch/csrc | sed expression
 mutants='attn_ragged_mask|attention.cu|s/s\[4 \* i + e\] = col < skv ? s\[4 \* i + e\] : -INFINITY;/s[4 * i + e] = s[4 * i + e];/
 attn_v_descriptor|attention.cu|s/dv + kt \* (16 \* SWZ_ROW >> 4)/dv + kt * (8 * SWZ_ROW >> 4)/
-avgp_ragged_mask|attention.cu|s/col < kv_len ? s\[nb\]\[e\] \* scale_log2 : -INFINITY/s[nb][e] * scale_log2/
-stream_ragged_mask|attention_stream.cu|s/live ? s\[mi\]\[nb\]\[e\] \* scale_log2 : -INFINITY/s[mi][nb][e] * scale_log2/
+pavg_column_guard|attention.cu|s/if (pairs \&\& col + 1 < skv) {/if (pairs) {/
+lse_without_log2l|attention.cu|s/lb\[r0\] = m\[0\] + log2f(l0);/lb[r0] = m[0];/
 conv_columns_wrap|conv.cu|s/ww >= 0 \&\& ww < W;/a_off[i] + shift >= 0 \&\& a_off[i] + shift < M * C;/
 conv_taps_mirrored|conv.cu|s/dx = tap % 3 - 1;/dx = 1 - tap % 3;/
 conv_swizzle|conv.cu|s/swz_offset((t >> 3) + 32 \* i, a_chunk)/swz_offset((t >> 3) + 32 * i, a_chunk ^ 1)/'
 
 # attn_ragged_mask: attn_fwd_kernel scores the zero-filled keys past a
-#   ragged end instead of masking them.
+#   ragged end instead of masking them (all three attention buckets and the
+#   capture's forward run this kernel).
 # attn_v_descriptor: attn_fwd_kernel's P.V product steps its V descriptor by
 #   8 keys where a product is 16 deep, so it multiplies by the wrong keys.
-# avgp_ragged_mask: the ragged-end mask dropped in the capture kernel.
-# stream_ragged_mask: the same in the streaming kernel.
+# pavg_column_guard: attn_pavg_kernel writes the columns of its last key
+#   tile past a ragged row's end, into the next row of the head average.
+# lse_without_log2l: the capture's forward stores each row's max as its
+#   log2-sum-exp, without log2 of the row's sum (rows r0 of each quad).
 # conv_columns_wrap: a tap that leaves the image sideways reads the
 #   neighbouring image row instead of zero (still inside the tensor).
 # conv_taps_mirrored: the three taps of each kernel row in reverse order.

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Sweep of the tile shapes of the port's two wgmma kernels on the card.
+"""Sweep of the tile shapes of the port's wgmma kernels on the card.
 
     python3 scripts/port_tile_sweep.py attention
+    python3 scripts/port_tile_sweep.py pavg
     python3 scripts/port_tile_sweep.py conv [--full]
 
 Run from the repository's root on a machine with a CUDA card and nvcc. For
-every shape the paths give ``attn_fwd_kernel`` (or ``conv3x3_kernel``) it
+every shape the paths give ``attn_fwd_kernel`` (the long rows of the
+streaming bucket included), ``attn_pavg_kernel`` or ``conv3x3_kernel`` it
 calls the kernel's C entry directly with each tile shape (and, for the
 convolution, each split over K) the source builds, holds the result against
 the plain PyTorch version, and prints the time of each beside the library
-call's (``scaled_dot_product_attention``, ``F.conv2d``). The rules that pick
-a tile in ``ops/attention._fwd_tile`` and ``ops/conv._plan`` were fitted to
-this script's output; it prints the rule's choice beside the fastest one.
+call's (``scaled_dot_product_attention``, ``F.conv2d``; none computes the
+head average). The rules that pick a tile in ``ops/attention._fwd_tile``,
+``ops/attention._pavg_tile`` and ``ops/conv._plan`` were fitted to this
+script's output; it prints the rule's choice beside the fastest one.
 Times are CUDA events around 20 launches queued behind a busy card
 (``chip_smoke._time_ms`` with its plug), so they are device times.
 """
@@ -29,8 +32,14 @@ ATTN_SHAPES = [(2, 8, 4096, 40), (4, 8, 4096, 40), (6, 8, 4096, 40),
                (2, 8, 4000, 40), (2, 8, 1024, 80), (4, 8, 1024, 80),
                (6, 8, 1024, 80), (4, 8, 1000, 80), (2, 8, 2304, 80),
                (4, 8, 2304, 80), (2, 8, 576, 160), (4, 8, 576, 160),
-               (2, 8, 520, 160), (2, 8, 1024, 64), (2, 8, 9216, 40),
-               (1, 8, 512, 80), (1, 8, 1024, 40)]
+               (2, 8, 520, 160), (2, 8, 1024, 64), (1, 8, 512, 80),
+               (1, 8, 1024, 40),
+               # the streaming bucket's long rows: 768^2 and 1024^2 samples
+               (2, 8, 9216, 40), (4, 8, 9216, 40), (2, 8, 16384, 40),
+               (1, 2, 16384, 40)]
+PAVG_SHAPES = [(2, 8, 1024, 80), (2, 8, 1000, 80), (2, 8, 2304, 80),
+               (2, 8, 576, 160), (2, 8, 1024, 160), (4, 8, 1024, 80),
+               (1, 8, 1024, 80), (2, 8, 4096, 40)]
 
 
 def sweep_attention() -> None:
@@ -46,7 +55,9 @@ def sweep_attention() -> None:
     for b, h, s, d in ATTN_SHAPES:
         q, k, v = _qkv(b, h, s, d, seed=s + d + b)
         scale = d ** -0.5
-        want = A.flash_attention_plain(q, k, v, scale)
+        want = (A.flash_attention_stream_plain(q, k, v, scale)
+                if A._bucket(s, s, d) == "stream"
+                else A.flash_attention_plain(q, k, v, scale))
         o_max = want.float().abs().max().item()
         sdpa = _time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=scale), 20, plug=True)
@@ -55,7 +66,7 @@ def sweep_attention() -> None:
             for block_k in (64, 128):
                 out = A._out_like(q)
                 args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), b, h, s, s, d, *A._strides(q),
+                        out.data_ptr(), None, b, h, s, s, d, *A._strides(q),
                         *A._strides(k), *A._strides(v), *A._strides(out),
                         float(scale * A._LOG2E), block_m, block_k, st)
                 if lib.rtt_attn_fwd(*args):
@@ -70,6 +81,41 @@ def sweep_attention() -> None:
         rule = "%dx%d" % A._fwd_tile(b, h, s, d)
         print(f"attn_fwd_kernel {(b, h, s, d)}: sdpa {sdpa:.4f} ms; rule "
               f"{rule} {res[rule]}; fastest {min(res, key=res.get)} "
+              f"{min(res.values())}; all {json.dumps(res)}", flush=True)
+
+
+def sweep_pavg() -> None:
+    import torch
+
+    from chip_smoke import PAVG_RTOL, _qkv, _time_ms
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.ops import build
+
+    lib = build.library()
+    st = torch.cuda.current_stream().cuda_stream
+    for b, h, s, d in PAVG_SHAPES:
+        q, k, v = _qkv(b, h, s, d, seed=s + d + b)
+        scale = d ** -0.5
+        _, lse = A.flash_attention_lse_plain(q, k, v, scale)
+        want = A.avg_probs_from_lse_plain(q, k, lse, scale)
+        res = {}
+        for block_m in (64, 128) if d <= 80 else (64,):
+            out = torch.empty((b, s, s), dtype=torch.float32, device="cuda")
+            args = (q.data_ptr(), k.data_ptr(), lse.data_ptr(),
+                    out.data_ptr(), b, h, s, s, d, *A._strides(q),
+                    *A._strides(k), float(scale * A._LOG2E), block_m, st)
+            if lib.rtt_attn_pavg(*args):
+                raise AssertionError(f"{(b, h, s, d)}: {block_m} rows failed")
+            torch.cuda.synchronize()
+            err = ((out - want).abs().max() / want.abs().max()).item()
+            if err > PAVG_RTOL:
+                raise AssertionError(f"{(b, h, s, d)} {block_m} rows: "
+                                     f"{err:.3e} of max|ref|")
+            res[block_m] = round(_time_ms(lambda: lib.rtt_attn_pavg(*args),
+                                          20, plug=True), 4)
+        rule = A._pavg_tile(b, s, s, d)
+        print(f"attn_pavg_kernel {(b, h, s, d)}: rule {rule} rows "
+              f"{res[rule]}; fastest {min(res, key=res.get)} "
               f"{min(res.values())}; all {json.dumps(res)}", flush=True)
 
 
@@ -141,6 +187,8 @@ def main(argv) -> int:
     print("device: " + _smi(), flush=True)
     if argv[:1] == ["attention"]:
         sweep_attention()
+    elif argv[:1] == ["pavg"]:
+        sweep_pavg()
     elif argv[:1] == ["conv"]:
         sweep_conv("--full" in argv)
     else:

@@ -55,6 +55,74 @@ def test_avg_probs_plain_matches_jax(b, h, s, d):
     np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=0, atol=ATOL)
 
 
+def _log2_sum_exp(q, k, scale):
+    """float64 log2-sum-exp of each row's scaled scores, in log2 units."""
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64),
+                  k.astype(np.float64)) * scale / np.log(2)
+    m = s.max(axis=-1, keepdims=True)
+    return (m + np.log2(np.exp2(s - m).sum(axis=-1, keepdims=True)))[..., 0], s
+
+
+@pytest.mark.parametrize("b,h,s,d", [(2, 2, 130, 40), (1, 3, 77, 80),
+                                     (1, 2, 64, 160)])
+def test_lse_plain_is_the_log2_sum_exp_of_the_jax_scores(b, h, s, d):
+    """``flash_attention_lse_plain``: its output is the JAX package's
+    ``attention_with_probs`` output (atol 1e-5), its lse the float64
+    log2-sum-exp of the same scaled scores (atol 1e-5 in log2 units, the
+    float32 rounding of scores of size ~10), and 2^(s·scale·log2 e − lse)
+    gives back the JAX package's probabilities (atol 1e-6)."""
+    q, k, v = _qkv(31 + s + d, b, h, s, s, d)
+    o_j, p_j = J.attention_with_probs(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v))
+    o_t, lse = T.flash_attention_lse_plain(*map(torch.from_numpy, (q, k, v)))
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    want, s2 = _log2_sum_exp(q, k, d ** -0.5)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(np.exp2(s2 - lse.numpy()[..., None]),
+                               np.asarray(p_j), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,h,s,d", [
+    (2, 2, 200, 40),   # the 64^2 level's head dim, ragged S
+    (1, 3, 136, 80),   # the capture layers' head dim, ragged S
+    (1, 2, 136, 160),  # the 1280-channel level's head dim
+])
+def test_capture_pieces_compose_to_the_jax_capture_kernel(b, h, s, d):
+    """The capture's two pieces, ``flash_attention_lse_plain`` then
+    ``avg_probs_from_lse_plain``, against the JAX package's
+    ``flash_attention_avg_probs`` in interpret mode, float32 on the same
+    inputs: atol 1e-5 on the output and on the head average (exp2 with the
+    folded scale against exp, summation order)."""
+    q, k, v = _qkv(17 + s + d, b, h, s, s, d)
+    o_j, p_j = J.flash_attention_avg_probs(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True)
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    o_t, lse = T.flash_attention_lse_plain(qt, kt, vt)
+    p_t = T.avg_probs_from_lse_plain(qt, kt, lse)
+    assert p_t.shape == (b, s, s) and p_t.dtype == torch.float32
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), rtol=0, atol=ATOL)
+
+
+def test_capture_pieces_take_their_plain_versions_on_cpu():
+    """On CPU tensors the capture's pieces return their plain versions'
+    results, compose to ``flash_attention_avg_probs``, and count no launch;
+    a scale other than d^-0.5 reaches both."""
+    q, k, v = map(torch.from_numpy, _qkv(8, 2, 3, 70, 90, 40))
+    T.reset_launches()
+    o, lse = T.flash_attention_lse(q, k, v, 0.3)
+    o2, lse2 = T.flash_attention_lse_plain(q, k, v, 0.3)
+    torch.testing.assert_close(o, o2)
+    torch.testing.assert_close(lse, lse2)
+    p = T.avg_probs_from_lse(q, k, lse, 0.3)
+    torch.testing.assert_close(p, T.avg_probs_from_lse_plain(q, k, lse, 0.3))
+    o3, p3 = T.flash_attention_avg_probs(q, k, v, 0.3)
+    torch.testing.assert_close(o, o3)
+    torch.testing.assert_close(p, p3, rtol=0, atol=1e-6)
+    assert set(T.LAUNCHES.values()) == {0}
+
+
 def test_wrappers_take_plain_version_on_cpu():
     """On CPU tensors the wrappers return their plain versions' results and
     count no launch."""

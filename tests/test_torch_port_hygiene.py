@@ -98,8 +98,7 @@ def test_kernel_sources_are_in_the_repo_and_self_contained():
 
     assert sorted(os.listdir(build.CSRC)) == sorted(
         build.SOURCES + build.HEADERS)
-    assert {"attention.cu", "attention_stream.cu", "conv.cu"} <= set(
-        build.SOURCES)
+    assert {"attention.cu", "conv.cu"} <= set(build.SOURCES)
     toolkit = {"cuda_bf16.h", "cuda_runtime.h", "math.h", "stdint.h"}
     for name in build.SOURCES + build.HEADERS:
         with open(os.path.join(build.CSRC, name), encoding="utf-8") as f:
@@ -112,6 +111,24 @@ def test_kernel_sources_are_in_the_repo_and_self_contained():
         assert "rich_text_to_image_tpu_torch/_build/" in f.read().split()
     for src in build.SOURCES:  # a library per source, keyed by its content
         assert build._lib_path(src).startswith(build.BUILD_DIR + os.sep)
+
+
+def test_kernel_mutants_apply_to_the_sources(tmp_path):
+    """Each one-line mutant of ``scripts/port_kernel_mutants.sh`` still
+    changes the source it names (the script itself runs on the card)."""
+    with open(os.path.join(ROOT, "scripts", "port_kernel_mutants.sh"),
+              encoding="utf-8") as f:
+        script = f.read()
+    block = script.split("mutants='", 1)[1].split("'\n", 1)[0]
+    specs = [line.split("|", 2) for line in block.splitlines()]
+    assert len(specs) >= 7
+    for name, src, expr in specs:
+        path = tmp_path / name
+        with open(os.path.join(PKG, "csrc", src), encoding="utf-8") as f:
+            path.write_text(f.read())
+        subprocess.run(["sed", "-i", expr, str(path)], check=True)
+        with open(os.path.join(PKG, "csrc", src), encoding="utf-8") as f:
+            assert path.read_text() != f.read(), name
 
 
 def _flax_shapes(module, *args):

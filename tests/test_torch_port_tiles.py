@@ -8,7 +8,9 @@ on the CPU, over the shapes the paths of ``chip_smoke.py`` give the kernels:
   * attention: the query rows a CTA (64, 128 or 192: one to three
     warpgroups) are those with the least waves x cost a wave, 64 only where
     64-row CTAs all run at once; the keys a tile are a pair the CUDA source
-    builds;
+    builds, and in the streaming bucket at most what the caller's
+    ``block_k`` allows; the capture's head average takes 64 or 128 rows a
+    CTA, 128 only up to head dim 80;
   * convolution: the N tile is 160 at the SD-1.5 widths, else 128 or 64,
     and always divides O; the (M tile, N tile) pair is one the CUDA source
     builds; the split over K leaves no range empty, has at most as many
@@ -39,8 +41,10 @@ def _smoke():
 
 
 SMOKE = _smoke()
-ATTN_SHAPES = sorted({(b, h, s, d) for _, _, b, h, s, d, bucket, _
-                      in SMOKE.ATTN_CASES if bucket in ("full", "full_t")})
+ATTN_SHAPES = sorted({(b, h, s, d) for _, _, b, h, s, d, _, kw
+                      in SMOKE.ATTN_CASES if not kw})
+PAVG_SHAPES = sorted({(b, h, s, d) for _, kind, b, h, s, d, _, _
+                      in SMOKE.ATTN_CASES if kind == "avgp"})
 CONV_SHAPES = [(b, r, c, o) for b in (1, 2, 4, 6)
                for r, c, o in SMOKE.SD15_CONV_SHAPES]
 
@@ -98,6 +102,74 @@ def test_attention_tile_rule_at_its_edge():
     # [4,8,576,160]: 288 CTAs of 64 rows in 3 waves measured faster than 160
     # of 128 rows in 2
     assert A._fwd_tile(4, 8, 576, 160) == (64, 64)
+
+
+def test_attention_tile_at_the_long_rows():
+    """The streaming bucket's shapes (768^2: S = 9216; 1024^2: S = 16384),
+    beyond the S <= 4096 the wave costs were fitted at. What
+    ``scripts/port_tile_sweep.py attention`` measured there (PERF.md): the
+    192-row CTAs where there are many waves of them, and at [1,2,16384,40],
+    where 171 CTAs of 192 rows would take two waves for 1.3 waves' work,
+    the 128-row tile of 128 keys."""
+    for b in (2, 4):
+        assert A._fwd_tile(b, 8, 9216, 40) == (192, 64)
+    assert A._fwd_tile(2, 8, 9000, 40) == (192, 64)
+    assert A._fwd_tile(2, 8, 16384, 40) == (192, 64)
+    assert A._fwd_tile(1, 2, 16384, 40) == (128, 128)
+
+
+@pytest.mark.parametrize("block_k", [32, 64, 100, 128, 192, 256, 512, 1024])
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_stream_key_tile_follows_block_k(block_k, d):
+    """The caller's ``block_k`` caps the streaming bucket's key tile: a
+    multiple of 64 from 128 up allows 128-key tiles, anything else 64; the
+    tile is then the cheapest built pair under the cap."""
+    cap = A._stream_tile(block_k)
+    assert cap == (128 if block_k >= 128 and block_k % 64 == 0 else 64)
+    dp = 48 if d <= 48 else 80 if d <= 80 else 160
+    for b, h, s in ((2, 8, 9216), (1, 2, 16384), (2, 8, 1000)):
+        block_m, keys = A._fwd_tile(b, h, s, d, cap)
+        assert keys <= cap and keys == _built_keys(dp, block_m)
+        cost = {m: _waves(b, h, s, m) * c for m, c in A._WAVE_COST.items()
+                if _built_keys(dp, m) is not None
+                and _built_keys(dp, m) <= cap}
+        assert cost[block_m] == min(cost.values())
+    # without a cap the streaming bucket takes the full-row tiles
+    if cap == 128:
+        assert A._fwd_tile(2, 8, 9216, d, cap) == A._fwd_tile(2, 8, 9216, d)
+
+
+def _pavg_waves(b, sq, skv, rows):
+    return -(-(-(-sq // rows) * -(-skv // 128) * b) // SMS)
+
+
+@pytest.mark.parametrize("b,h,s,d", PAVG_SHAPES + [
+    (4, 8, 1024, 80), (1, 8, 1024, 80), (2, 8, 4096, 40), (6, 8, 4096, 40)])
+def test_pavg_tile_rule(b, h, s, d):
+    """attn_pavg_kernel's rows a CTA: the least waves x cost a wave, 128
+    rows only up to head dim 80 (``launch_pavg`` builds two warpgroups
+    there only)."""
+    src = _source("attention.cu")
+    assert re.search(r"if constexpr \(DP <= 80\) \{\s*if \(block_m == 128\)",
+                     src)
+    rows = A._pavg_tile(b, s, s, d)
+    if d > 80:
+        assert rows == 64
+        return
+    cost = {m: _pavg_waves(b, s, s, m) * c
+            for m, c in A._PAVG_WAVE_COST.items()}
+    assert cost[rows] == min(cost.values())
+
+
+def test_pavg_tile_follows_the_measured_choices():
+    """What ``scripts/port_tile_sweep.py pavg`` measured fastest (PERF.md):
+    two warpgroups where their CTAs fill the card, one where only that
+    does, and one above head dim 80."""
+    assert A._pavg_tile(2, 1024, 1024, 80) == 128
+    assert A._pavg_tile(2, 2304, 2304, 80) == 128
+    assert A._pavg_tile(1, 1024, 1024, 80) == 64
+    assert A._pavg_tile(2, 576, 576, 160) == 64
+    assert A._pavg_tile(2, 1024, 1024, 160) == 64
 
 
 def _built_conv_tiles():
