@@ -28,9 +28,17 @@ is no CUDA device or the port's package is not beside it. Phases, in order:
      streaming kernel and the 24^2 level runs at head dim 160;
   8. injection: the 512^2 flow with self-attention and background injection
      through the in-batch reference flow (rich batch R+4);
-  9. breakdown: the per-call times of what the passes repeat (the UNet at
-     batch 2 and R+2 = 4, one colour-guided step, the final decode);
- 10. profile: one UNet forward at batch 2 and 4 under ``torch.profiler``,
+  9. refer-precompute: the same request through the CLI's default flow
+     (the plain pass keeps the refer cache, the rich batch is R+2), its
+     image against the in-batch one;
+ 10. schedulers: the 512^2 flow under DDIM and DPM-Solver++, and the plain
+     pass under Euler (whose rich pass the CLI refuses);
+ 11. turbo: the 512^2 flow with encoder reuse 2, guidance at half size and
+     the bfloat16 guidance decode, against the exact run;
+ 12. breakdown: the per-call times of what the passes repeat (the UNet at
+     batch 2 and R+2 = 4, one colour-guided step exact, pooled by 2 and in
+     bfloat16, the final decode);
+ 13. profile: one UNet forward at batch 2 and 4 under ``torch.profiler``,
      its device kernel count and the device's idle share.
 
 ``--kernels-only`` stops after phase 3. The line before the last lists the
@@ -77,7 +85,12 @@ RICH_TEXT = json.dumps({"ops": [
 REGIONS = 2  # R: the footnote span and the coloured span get region prompts
 
 STEPS_768 = 11  # 12 UNet calls a pass; the cross sums start at step 10
-STEPS_SHORT = 4  # the gate-on and injection samples: 5 UNet calls a pass
+STEPS_SHORT = 4  # the gate-on, injection, scheduler and turbo samples
+# the refer-precompute flow's image against the in-batch flow's, mean |image
+# difference| in uint8 steps: 1.64 measured on the H100 (bf16 at batches 2
+# and R+2 against R+4; about what the injection itself moves the image at
+# 4 steps, 1.65), held with room for the card's run-to-run spread
+REFPRE_MAX_DIFF = 4.0
 
 ATTN_SRC = "rich_text_to_image_tpu_torch/csrc/attention.cu"
 KERNELS = {
@@ -647,19 +660,20 @@ def conv_phase(pipe, out_dir: str, times: dict) -> int:
 def breakdown_phase(pipe) -> dict:
     """Per-call times, with CUDA events, of what the two passes repeat at
     512^2: the UNet forward at the plain (B=2) and rich (B=R+2) batch, one
-    colour-guided step (fp32 VAE decode of the x0 prediction and its
-    gradient) and the final decode."""
+    colour-guided step (VAE decode of the x0 prediction and its gradient:
+    exact in fp32, with the latent and masks pooled by 2, in bf16, and
+    both) and the final decode."""
+    import numpy as np
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(2)
     lat = torch.randn((1, 64, 64, 4), generator=g, device="cuda")
     noise = torch.randn((1, 64, 64, 4), generator=g, device="cuda")
     ctx = pipe.get_text_embeds(["a cat", "a scooter", "a palm"], [""])
-    color = dict(
-        masks_px=(torch.rand((1, 512, 512), generator=g, device="cuda")
-                  > 0.5).float(),
-        target_rgb=torch.tensor([[1.0, 0.0, 0.0]], device="cuda"),
-        all=torch.ones((1, 64, 64, 1), device="cuda"), weight=0.5)
+    fmt = {"color_obj_atten": [(np.random.default_rng(2).random(
+               (512, 512)) > 0.5).astype(np.float32)],
+           "target_RGB": [[1.0, 0.0, 0.0]],
+           "color_obj_atten_all": np.ones((64, 64), np.float32)}
     out = {}
     with torch.no_grad():
         for b in (2, REGIONS + 2):
@@ -667,8 +681,11 @@ def breakdown_phase(pipe) -> dict:
             out[f"unet_b{b}_ms"] = _time_ms(
                 lambda: pipe.unet(x, 500, ctx[:b]), 5)
         out["decode_ms"] = _time_ms(lambda: pipe.decode_latents(lat), 3)
-    out["guided_step_ms"] = _time_ms(
-        lambda: pipe._guided(lat, noise, 0.5, color), 3)
+    for tag, ds, bf16 in (("", 1, False), ("_gds2", 2, False),
+                          ("_bf16", 1, True), ("_gds2_bf16", 2, True)):
+        color = pipe._color_inputs(fmt, 512, 512, 64, 64, ds, bf16, 0.5)
+        out[f"guided_step{tag}_ms"] = _time_ms(
+            lambda: pipe._guided(lat, noise, 0.5, color), 3)
     n = pipe.scheduler.plan(STEPS).num_steps
     print(f"breakdown: {json.dumps(out)}; with {n} UNet calls a pass, the "
           f"parts give plain_pass ~ {n * out['unet_b2_ms'] / 1e3:.3f} s + "
@@ -712,8 +729,150 @@ def profile_phase(pipe, unet_ms: dict) -> None:
               f"share {idle}", flush=True)
 
 
-def main(kernels_only: bool = False) -> int:
+def _image_diff(a, b) -> float:
+    """Mean |a - b| of two uint8 images, in uint8 steps."""
     import numpy as np
+
+    return float(np.abs(a.astype(np.int32) - b.astype(np.int32)).mean())
+
+
+def _batches(pipe, fn):
+    """(what ``fn`` returns, the UNet batch of each forward it ran)."""
+    seen = []
+    hook = pipe.unet.register_forward_pre_hook(
+        lambda mod, inp: seen.append(inp[0].shape[0]))
+    try:
+        return fn(), seen
+    finally:
+        hook.remove()
+
+
+def refpre_phase(pipe, out_dir: str, in_batch_img, no_inject_img) -> None:
+    """The injection request of the ``inject:`` phase through the CLI's
+    default flow: the plain pass keeps the refer cache, the rich pass runs
+    R+2 rows a step and injects from it. Fails if the rich pass fell back
+    to the in-batch flow (R+4 rows), if a launch count differs from the
+    in-batch flow's, if the image is further than ``REFPRE_MAX_DIFF`` from
+    the in-batch one (same seed and text), or if it equals the image of the
+    run without injection (the same R+2 rows but for the injection)."""
+    calls = pipe.scheduler.plan(STEPS_SHORT).num_steps
+    (launches, _, _, rich, _), seen = _batches(pipe, lambda: sample_phase(
+        "refpre", pipe, out_dir, 512, STEPS_SHORT,
+        ["--inject_selfattn", "0.3", "--inject_background", "0.3"],
+        agg_start=1))
+    _expect("refpre", launches, {"full": 2 * calls * 5, "avgp": 5,
+                                 "full_t": 2 * calls * 5 - 5})
+    if seen != [2] * calls + [REGIONS + 2] * calls:
+        raise AssertionError(f"refpre: UNet batches {seen}, expected "
+                             f"{calls} of 2 then {calls} of R+2 = "
+                             f"{REGIONS + 2} (no fallback to the in-batch "
+                             "flow)")
+    cache = pipe.ref_cache
+    if cache is None:
+        raise AssertionError("refpre: the plain pass kept no refer cache")
+    tensors = [cache["traj"], *cache["resnet"].values(),
+               *(t for qk in cache["qk"].values() for t in qk)]
+    total = sum(t.numel() * t.element_size() for t in tensors)
+    diff = _image_diff(rich, in_batch_img)
+    moved = _image_diff(rich, no_inject_img)
+    print(f"refpre: rich batch R+2 = {REGIONS + 2} in {calls} calls; refer "
+          f"cache {len(cache['steps'])} slots (steps {list(cache['steps'])})"
+          f", {pipe._ref_qk_bytes_per_slot((64, 64))} bytes a slot, "
+          f"{total} bytes in all with the trajectory; mean |image "
+          f"difference| against the in-batch flow {diff:.4f} of 255 (bound "
+          f"{REFPRE_MAX_DIFF}), against the run without injection "
+          f"{moved:.4f}", flush=True)
+    if diff > REFPRE_MAX_DIFF:
+        raise AssertionError("refpre: the image is too far from the "
+                             "in-batch flow's")
+    if moved == 0.0:
+        raise AssertionError("refpre: the injection did not change the "
+                             "image")
+
+
+def scheduler_phases(pipe, out_dir: str, pndm_imgs) -> None:
+    """The 512^2 flow under DDIM and DPM-Solver++ (one UNet call a step, PNDM
+    one more), images against PNDM's of the same seed and text; then the
+    plain pass under Euler, whose rich pass the CLI refuses."""
+    import numpy as np
+
+    from rich_text_to_image_tpu_torch.cli.sample import (check_args,
+                                                         make_parser,
+                                                         make_scheduler)
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.utils import richtext
+
+    default = pipe.scheduler
+    try:
+        for name in ("ddim", "dpm"):
+            pipe.scheduler = make_scheduler(name)
+            calls = pipe.scheduler.plan(STEPS_SHORT).num_steps
+            if calls != STEPS_SHORT:
+                raise AssertionError(f"sched-{name}: {calls} UNet calls a "
+                                     f"pass for {STEPS_SHORT} steps")
+            launches, _, plain, rich, _ = sample_phase(
+                f"sched-{name}", pipe, os.path.join(out_dir, name), 512,
+                STEPS_SHORT, ["--scheduler", name], agg_start=1)
+            _expect(f"sched-{name}", launches, {
+                "full": 2 * calls * 5, "avgp": 5,
+                "full_t": 2 * calls * 5 - 5})
+            d = [_image_diff(a, b) for a, b in zip((plain, rich), pndm_imgs)]
+            print(f"sched-{name}: {calls} UNet calls a pass (PNDM "
+                  f"{STEPS_SHORT + 1}); mean |image difference| against "
+                  f"PNDM's: plain {d[0]:.3f}, rich {d[1]:.3f} of 255",
+                  flush=True)
+            if min(d) == 0.0:
+                raise AssertionError(f"sched-{name}: the image is PNDM's")
+        pipe.scheduler = make_scheduler("euler")
+        calls = pipe.scheduler.plan(STEPS_SHORT).num_steps
+        A.reset_launches()
+        base = richtext.parse_json(json.loads(RICH_TEXT)).base_text_prompt
+        img, _ = pipe.produce_attn_maps(
+            [base], [""], height=512, width=512,
+            num_inference_steps=STEPS_SHORT, guidance_scale=8.5, seed=6)
+        launches = dict(A.LAUNCHES)
+    finally:
+        pipe.scheduler = default
+    _expect("sched-euler", launches, {"full": calls * 5, "avgp": 5,
+                                      "full_t": calls * 5 - 5})
+    f = img.astype(np.float64)
+    if img.shape != (1, 512, 512, 3) or not np.isfinite(f).all() or (
+            f.std() == 0):
+        raise AssertionError(f"sched-euler: the image is wrong: {img.shape}")
+    try:
+        check_args(make_parser().parse_args(["--scheduler", "euler"]))
+    except SystemExit as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("sched-euler: check_args took --scheduler euler")
+    print(f"sched-euler: plain pass, {calls} UNet calls, image mean "
+          f"{f.mean():.3f} std {f.std():.3f} of 255, launches {launches}; "
+          f"the CLI refuses the rich pass: {refusal[:60]}...", flush=True)
+
+
+def turbo_phase(pipe, out_dir: str, exact_img) -> None:
+    """The 512^2 flow with ``--encoder_reuse 2 --guidance_downsample 2
+    --bf16_guidance``: on the rich pass's non-key steps the two down-block
+    self-attention layers at 64^2 and at 32^2 do not run (3 launches of
+    each instead of 5). The image against the exact run's."""
+    from rich_text_to_image_tpu_torch.pipelines.base import encoder_key_gates
+
+    calls = pipe.scheduler.plan(STEPS_SHORT).num_steps
+    keys = int(encoder_key_gates(calls, 2, "early").sum())
+    launches, _, _, rich, _ = sample_phase(
+        "turbo", pipe, out_dir, 512, STEPS_SHORT,
+        ["--encoder_reuse", "2", "--guidance_downsample", "2",
+         "--bf16_guidance"], agg_start=1)
+    rich_calls = 5 * keys + 3 * (calls - keys)
+    _expect("turbo", launches, {"full": 5 * calls + rich_calls, "avgp": 5,
+                                "full_t": 5 * calls - 5 + rich_calls})
+    print(f"turbo: {keys} key steps of {calls}; rich pass K1/K2 launches "
+          f"{rich_calls} each (exact {5 * calls}); mean |image difference| "
+          f"against the exact run {_image_diff(rich, exact_img):.3f} of 255",
+          flush=True)
+
+
+def main(kernels_only: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -780,25 +939,21 @@ def main(kernels_only: bool = False) -> int:
     # injection: the rich batch grows from R+2 to R+4 rows, the counts per
     # call stay, and the image must differ from the run without injection
     calls = pipe.scheduler.plan(STEPS_SHORT).num_steps
-    _, _, _, rich_off, _ = sample_phase(
+    _, _, plain_off, rich_off, _ = sample_phase(
         "inject-off", pipe, os.path.join(out, "inject_off"), 512,
         STEPS_SHORT, agg_start=1)
-    seen_batch = []
-    hook = pipe.unet.register_forward_pre_hook(
-        lambda mod, inp: seen_batch.append(inp[0].shape[0]))
-    launches, _, _, rich_on, share = sample_phase(
-        "inject", pipe, os.path.join(out, "inject"), 512, STEPS_SHORT,
-        ["--inject_selfattn", "0.3", "--inject_background", "0.3",
-         "--no_ref_precompute"], agg_start=1)
-    hook.remove()
+    (launches, _, _, rich_on, share), seen_batch = _batches(
+        pipe, lambda: sample_phase(
+            "inject", pipe, os.path.join(out, "inject"), 512, STEPS_SHORT,
+            ["--inject_selfattn", "0.3", "--inject_background", "0.3",
+             "--no_ref_precompute"], agg_start=1))
     _expect("inject", launches, {"full": 2 * calls * 5, "avgp": 5,
                                  "full_t": 2 * calls * 5 - 5})
     if seen_batch != [2] * calls + [REGIONS + 4] * calls:
         raise AssertionError(f"inject: UNet batches {seen_batch}, expected "
                              f"{calls} of 2 then {calls} of R+4 = "
                              f"{REGIONS + 4}")
-    moved = float(np.abs(rich_on.astype(np.int32)
-                         - rich_off.astype(np.int32)).mean())
+    moved = _image_diff(rich_on, rich_off)
     print(f"inject: rich batch R+4 = {REGIONS + 4} in {calls} calls; mean "
           f"|image "
           f"difference| against the run without injection {moved:.3f} of "
@@ -807,6 +962,10 @@ def main(kernels_only: bool = False) -> int:
         # the injected rows are the span rows: with empty span regions they
         # would not reach the image
         raise AssertionError("injection did not change the image")
+
+    refpre_phase(pipe, os.path.join(out, "refpre"), rich_on, rich_off)
+    scheduler_phases(pipe, os.path.join(out, "sched"), (plain_off, rich_off))
+    turbo_phase(pipe, os.path.join(out, "turbo"), rich_off)
 
     profile_phase(pipe, breakdown_phase(pipe))
 

@@ -5,11 +5,19 @@
 
 Plain pass with attention capture, token maps, then the rich pass with
 region compositing, font-size reweighting, colour guidance and, with
-``--inject_selfattn`` / ``--inject_background`` together with
-``--no_ref_precompute``, self-attention and background injection through
-the in-batch flow. ``--height`` / ``--width`` take any multiple of 64
-(768x768, 512x768, ...). Images are written as PNG. Flags of the JAX CLI
-that this port does not cover yet exit with a message naming them.
+``--inject_selfattn`` / ``--inject_background``, self-attention and
+background injection: by default through the refer-precompute flow (the
+plain pass keeps the reference trajectory and the injection steps' (Q, K)
+and resnet feature, and the rich pass reads them), with
+``--no_ref_precompute`` through the in-batch flow. ``--scheduler`` takes
+pndm (the default), ddim or dpm; the turbo knobs ``--encoder_reuse``,
+``--encoder_schedule``, ``--guidance_downsample`` and ``--bf16_guidance``
+are the JAX CLI's. ``--height`` / ``--width`` take any multiple of 64
+(768x768, 512x768, ...). Images are written as PNG. ``--bf16_vae`` is
+accepted and, as in the JAX CLI's SD branch, not read. Flags of the JAX
+CLI that this port does not cover yet exit with a message naming them:
+``--model SDXL|AnimeXL``, ``--mesh``, ``--save_attn``, and
+``--scheduler euler``, whose rich pass fails in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,14 +36,27 @@ DEFAULT_RICH_TEXT = (
     'the background."}]}')
 
 
+def make_scheduler(name):
+    """The scheduler that ``--scheduler`` names (None: the pipeline's
+    default, PNDM)."""
+    if name is None:
+        return None
+    from ..schedulers import (DDIMScheduler, DPMSolverMultistepScheduler,
+                              EulerDiscreteScheduler, PNDMScheduler)
+
+    return {"pndm": PNDMScheduler, "ddim": DDIMScheduler,
+            "dpm": DPMSolverMultistepScheduler,
+            "euler": EulerDiscreteScheduler}[name]()
+
+
 def build_model(args):
     from ..pipelines.region_sd import RegionDiffusion
 
+    kw = dict(device=args.device, scheduler=make_scheduler(args.scheduler))
     if args.checkpoint_dir:
-        return RegionDiffusion.from_pretrained(args.checkpoint_dir,
-                                               device=args.device)
+        return RegionDiffusion.from_pretrained(args.checkpoint_dir, **kw)
     if args.random_weights:
-        return RegionDiffusion.random_init(seed=0, device=args.device)
+        return RegionDiffusion.random_init(seed=0, **kw)
     raise SystemExit("no weights: pass --checkpoint_dir <local SD-1.5 "
                      "diffusers directory> or --random_weights")
 
@@ -73,13 +94,26 @@ def run_sample(model, args, param, save=True):
         if model.device.type == "cuda":
             torch.cuda.synchronize(model.device)
 
+    # refer-trajectory precompute: with injection the plain pass (same
+    # seed, prompt and scheduler: it is the reference trajectory) also keeps
+    # the injection steps' (Q, K)/resnet features and the latents, and the
+    # rich pass drops its reference rows
+    use_refpre = ((args.inject_selfattn > 0 or args.inject_background > 0)
+                  and not args.no_ref_precompute)
+    ref_kw = {}
+    if use_refpre:
+        plan = model.scheduler.plan(param["steps"])
+        gates = np.asarray(plan.timesteps, np.float64) > (
+            (1 - args.inject_selfattn) * 1000)
+        ref_kw = {"ref_capture_steps": tuple(np.nonzero(gates)[0].tolist())}
+
     seconds = {}
     # ---- plain pass + attention aggregation
     begin = time.time()
     plain_img, agg = model.produce_attn_maps(
         [parsed.base_text_prompt], [negative_text], height=height,
         width=width, num_inference_steps=param["steps"],
-        guidance_scale=param["guidance_weight"], seed=seed)
+        guidance_scale=param["guidance_weight"], seed=seed, **ref_kw)
     _sync()
     seconds["plain_pass"] = time.time() - begin
     if save:
@@ -112,7 +146,13 @@ def run_sample(model, args, param, save=True):
         use_guidance=parsed.use_grad_guidance,
         inject_selfattn=args.inject_selfattn,
         inject_background=args.inject_background,
-        text_format_dict=text_format_dict, seed=seed)
+        text_format_dict=text_format_dict, seed=seed,
+        encoder_reuse=args.encoder_reuse,
+        encoder_schedule=args.encoder_schedule,
+        bf16_guidance=args.bf16_guidance,
+        guidance_downsample=args.guidance_downsample,
+        **({"ref_cache": model.ref_cache}
+           if use_refpre and model.ref_cache is not None else {}))
     _sync()
     seconds["rich_pass"] = time.time() - begin
     if save:
@@ -122,38 +162,26 @@ def run_sample(model, args, param, save=True):
     return plain_img, rich_img, seconds
 
 
-# flags of the JAX CLI outside this port's slice, with the value that
-# means "off"
-_NOT_PORTED = {
-    "encoder_reuse": 1, "bf16_guidance": False, "guidance_downsample": 1,
-    "mesh": None, "bf16_vae": False, "save_attn": False,
-    "encoder_schedule": "early",
-}
-
-
 def check_args(args) -> None:
     """Exit with a message on flags this port does not cover yet."""
     if args.model != "SD":
         raise SystemExit(f"--model {args.model}: only SD (SD-1.5) is ported "
                          "to PyTorch yet (ROADMAP.md, Queue 1)")
-    if args.scheduler not in (None, "pndm"):
-        raise SystemExit(f"--scheduler {args.scheduler}: only pndm is ported "
-                         "yet (ROADMAP.md, Queue 1)")
-    if ((args.inject_selfattn > 0 or args.inject_background > 0)
-            and not args.no_ref_precompute):
-        # without the flag the JAX CLI runs the refer-precompute flow, a
-        # different computation from the in-batch one that is ported
+    if args.scheduler == "euler":
+        # Euler's timesteps are floats; the JAX package's rich pass indexes
+        # alphas_cumprod with them and raises
         raise SystemExit(
-            "--inject_selfattn / --inject_background: the refer-precompute "
-            "flow is not ported to PyTorch yet (ROADMAP.md, Queue 1); add "
-            "--no_ref_precompute to run the in-batch flow")
-    on = [f"--{k}" for k, off in _NOT_PORTED.items()
+            "--scheduler euler: the SD rich pass fails under Euler in the "
+            "JAX package (pipelines/region_sd.py:772 indexes alphas_cumprod "
+            "with its float timesteps: IndexError), and the port refuses it "
+            "likewise (ROADMAP.md, Queue 3); use pndm, ddim or dpm")
+    on = [f"--{k}" for k, off in (("mesh", None), ("save_attn", False))
           if getattr(args, k) != off]
     if on:
         raise SystemExit(
-            f"{' '.join(on)}: not ported to PyTorch yet (turbo knobs, meshes "
-            "and the segmentation/attention figures are later slices; "
-            "ROADMAP.md, Queue 1)")
+            f"{' '.join(on)}: not ported to PyTorch yet (meshes and the "
+            "segmentation/attention figures are later slices; ROADMAP.md, "
+            "Queue 1)")
 
 
 def make_parser():
@@ -177,16 +205,16 @@ def make_parser():
     p.add_argument("--random_weights", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda)")
-    # accepted for the JAX CLI's flag set; exit unless left off
+    # SDXL's flag in the JAX CLI; its SD branch does not read it
     p.add_argument("--bf16_vae", action="store_true")
-    p.add_argument("--save_attn", action="store_true")
+    p.add_argument("--save_attn", action="store_true")  # exits unless off
     p.add_argument("--scheduler", type=str, default=None,
                    choices=["pndm", "ddim", "dpm", "euler"])
     p.add_argument("--bf16_guidance", action="store_true")
     p.add_argument("--no_ref_precompute", action="store_true")
     p.add_argument("--guidance_downsample", type=int, default=1)
     p.add_argument("--encoder_reuse", type=int, default=1)
-    p.add_argument("--mesh", type=str, default=None)
+    p.add_argument("--mesh", type=str, default=None)  # exits unless off
     p.add_argument("--encoder_schedule", choices=["early", "uniform"],
                    default="early")
     return p

@@ -6,18 +6,21 @@ Counterpart of ``rich_text_to_image_tpu/pipelines/region_sd.py``. Each JAX
   * ``produce_attn_maps`` — the plain CFG pass with attention capture: the
     cond row's head-averaged self-attention at the 32^2 registry layers (at
     the last step only: the reference keeps only the last step's self maps)
-    and cross-attention sums from ``agg_start_step`` on;
+    and cross-attention sums from ``agg_start_step`` on; on request it also
+    keeps the refer cache (the latent trajectory and the injection steps'
+    (Q, K) and resnet feature);
   * ``prompt_to_img`` / ``produce_latents`` — the rich pass: one batched
     [uncond, spans..., base] UNet forward per step, noise composited under
     the token masks, font-size reweighting on the base row, and colour
     guidance through the gradient of the VAE decode
     (``torch.autograd.grad``).
 
-Self-attention and background injection run the in-batch flow (the JAX
-package's ``_rich_fn`` with ``run_reference``): a second, reference
-trajectory is denoised beside the rich one, in one UNet forward of R+4 rows
-per step. The refer-precompute flow (``ref_cache``) and the turbo knobs of
-the JAX package are not ported yet.
+Self-attention and background injection run the refer-precompute flow when
+the plain pass left a cache that fits the request, else the in-batch flow
+(the reference trajectory denoised beside the rich one). The turbo knobs of
+the JAX package are here: encoder reuse, a pooled and a bfloat16 guidance
+decode. Any scheduler of ``schedulers/`` runs the plain pass; the rich pass
+refuses Euler's float timesteps, as the JAX package fails on them.
 
 Precision policy (the JAX package's, docs/ARCHITECTURE.md): a bfloat16 UNet
 with float32 softmax statistics, a float32 VAE and CLIP text encoder, and
@@ -26,6 +29,7 @@ float32 scheduler state.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 from typing import Optional, Sequence
@@ -36,7 +40,8 @@ import torch
 from ..models import config as cfgs
 from ..models.clip import CLIPTextModel
 from ..models.tokenizer import CLIPTokenizer
-from ..models.unet import CaptureSpec, UNet2DCondition, UNetControls
+from ..models.unet import (EMPTY_CAPTURE, INJECT_RESNET_NAME, CaptureSpec,
+                           UNet2DCondition, UNetControls)
 from ..models.vae import AutoencoderKL
 from ..ops.attention import make_token_weight_vectors
 from ..schedulers.pndm import PNDMScheduler
@@ -44,6 +49,11 @@ from ..utils.registries import (CrossAttentionLayers, SelfAttentionLayers,
                                 attn_layer_resolutions)
 from ..utils.token_maps import SEG_RESOLUTION, AttnAggregates
 from .. import weights
+from .base import (REF_PRECOMPUTE_MAX_BYTES, encoder_key_gates,
+                   ref_cache_matches, ref_fingerprint, ref_qk_bytes_per_slot)
+
+# the reference rows' capture of the in-batch flow with encoder reuse
+CAPTURE_REF = CaptureSpec(qk=True, resnet=frozenset({INJECT_RESNET_NAME}))
 
 
 def set_precision_policy() -> None:
@@ -69,17 +79,28 @@ class RichControlSpec:
     use_guidance: bool = False
     guidance_start_step: int = 999
     color_guidance_weight: float = 1.0
+    # turbo knobs, off by default (the exact reference math): encoder reuse
+    # ("Faster Diffusion", arXiv 2312.09608) runs the UNet's down path on
+    # key steps only, placed by ``encoder_schedule`` ("early" or
+    # "uniform"); the colour guidance's decode in bfloat16, or at 1/d of
+    # the size (the x0 latent and the pixel masks pooled by d)
+    encoder_reuse: int = 1
+    encoder_schedule: str = "early"
+    bf16_guidance: bool = False
+    guidance_downsample: int = 1
 
 
 class RegionDiffusion:
     """SD-1.5 rich-text-to-image pipeline."""
+
+    ref_precompute_max_bytes = REF_PRECOMPUTE_MAX_BYTES
 
     def __init__(self, unet: UNet2DCondition, vae: AutoencoderKL,
                  text_encoder: CLIPTextModel, tokenizer: CLIPTokenizer,
                  unet_cfg: cfgs.UNetConfig = cfgs.SD15_UNET,
                  vae_cfg: cfgs.VAEConfig = cfgs.SD15_VAE,
                  agg_start_step: int = 10,  # reference: n_maps > 10
-                 scheduler: PNDMScheduler | None = None,
+                 scheduler=None,
                  device="cuda"):
         set_precision_policy()
         self.device = torch.device(device)
@@ -94,6 +115,8 @@ class RegionDiffusion:
         self.agg_start_step = agg_start_step
         self.vae_scale_factor = 2 ** (len(vae_cfg.block_out_channels) - 1)
         self.masks: list[np.ndarray] = []  # [R+1] of [1, h, w]
+        self.ref_cache: Optional[dict] = None  # set by produce_attn_maps
+        self._vae_bf16: Optional[AutoencoderKL] = None
 
     # ------------------------------------------------------------ factories
     @classmethod
@@ -133,18 +156,30 @@ class RegionDiffusion:
     # ----------------------------------------------------------------- text
     @torch.no_grad()
     def get_text_embeds(self, prompts, negative_prompts="") -> torch.Tensor:
-        """[uncond, prompt_1..N] embeddings [N+1, 77, D] float32."""
+        """[uncond, prompt_1..N] embeddings [N+1, 77, D] float32.
+
+        Each prompt is encoded in a call of its own, so that its row does
+        not depend on the other prompts: the card's matrix products pick
+        their kernels by the batch, and the refer cache's fingerprint
+        compares the uncond and base rows of the plain pass (batch 2) with
+        the rich pass's (batch R+2)."""
         if isinstance(prompts, str):
             prompts = [prompts]
         if isinstance(negative_prompts, str):
             negative_prompts = [negative_prompts]
         ids = self.tokenizer(list(negative_prompts) + list(prompts))
         ids = torch.from_numpy(ids.astype(np.int64)).to(self.device)
-        return self.text_encoder(ids)["last_hidden_state"]
+        return torch.cat([self.text_encoder(row[None])["last_hidden_state"]
+                          for row in ids], dim=0)
 
     # ------------------------------------------------------------ VAE utils
-    def _decode_imgs(self, latents: torch.Tensor) -> torch.Tensor:
-        imgs = self.vae.decode(latents.float() / self.vae_cfg.scaling_factor)
+    def _decode_imgs(self, latents: torch.Tensor,
+                     vae: Optional[AutoencoderKL] = None) -> torch.Tensor:
+        """Images in [0, 1], NHWC, at the dtype of ``vae`` (the pipeline's
+        float32 VAE by default)."""
+        vae = vae if vae is not None else self.vae
+        z = latents.float() / self.vae_cfg.scaling_factor
+        imgs = vae.decode(z.to(vae.decoder.conv_in.weight.dtype))
         return (imgs / 2 + 0.5).clamp(0.0, 1.0)
 
     @torch.no_grad()
@@ -188,12 +223,26 @@ class RegionDiffusion:
         return seg_res, self_layers, cross_by_res
 
     # ------------------------------------------------------------ plain pass
+    def _ref_qk_bytes_per_slot(self, latent_hw) -> int:
+        """Bytes of one refer-cache slot at this latent size (shapes only)."""
+        return ref_qk_bytes_per_slot(self.unet, latent_hw)
+
     def produce_attn_maps(self, prompts, negative_prompts="",
                           height: int = 512, width: int = 512,
                           num_inference_steps: int = 50,
                           guidance_scale: float = 7.5, latents=None,
-                          seed: int = 0):
-        """Plain CFG pass; returns (images uint8, AttnAggregates)."""
+                          seed: int = 0, ref_capture_steps=None):
+        """Plain CFG pass; returns (images uint8, AttnAggregates).
+
+        ``ref_capture_steps`` (step indices, may be empty): also keep the
+        refer cache as ``self.ref_cache``: the latent before every step and
+        the final one, and at each listed step the cond row's (Q, K) of
+        every self-attention layer and its :data:`INJECT_RESNET_NAME`
+        feature. The rich pass of the same seed, base prompt, guidance and
+        steps then injects from it instead of denoising the reference
+        trajectory beside its own. The capture is skipped (``ref_cache``
+        None) where its slots would take more than
+        ``ref_precompute_max_bytes``."""
         if not isinstance(prompts, str):
             prompts = list(prompts)
             if len(prompts) != 1:
@@ -202,9 +251,25 @@ class RegionDiffusion:
                                  f"{len(prompts)}")
         embeds = self.get_text_embeds(prompts, negative_prompts)
         h, w = height // self.vae_scale_factor, width // self.vae_scale_factor
-        lat = self._init_latents(latents, h, w, seed)
-        lat, self_sum, cross_sums, self_layers, cross_by_res = self._plain_loop(
-            lat, embeds, num_inference_steps, float(guidance_scale))
+        plan = self.scheduler.plan(num_inference_steps)
+        lat = self._init_latents(latents, h, w, seed) * getattr(
+            plan, "init_noise_sigma", 1.0)
+        slots = (tuple(int(s) for s in ref_capture_steps)
+                 if ref_capture_steps is not None else None)
+        if slots and (self._ref_qk_bytes_per_slot((h, w)) * len(slots)
+                      > self.ref_precompute_max_bytes):
+            slots = None  # the rich pass then runs the in-batch flow
+        # drop the last run's cache before this one fills a new one
+        self.ref_cache = None
+        cache = {} if slots is not None else None
+        lat_end, self_sum, cross_sums, self_layers, cross_by_res = (
+            self._plain_loop(lat, embeds, num_inference_steps,
+                             float(guidance_scale), ref_slots=slots,
+                             ref_cache=cache))
+        if cache is not None:
+            cache.update(steps=slots, g=float(guidance_scale), hw=(h, w),
+                         fp=ref_fingerprint(lat, embeds[0], embeds[-1]))
+            self.ref_cache = cache
         agg = AttnAggregates(
             self_sum=self_sum,
             self_count=len(self_layers),
@@ -212,10 +277,18 @@ class RegionDiffusion:
             cross_layer_count=sum(len(v) for v in cross_by_res.values()),
         )
         self.attn_aggregates = agg
-        return self.decode_latents(lat), agg
+        return self.decode_latents(lat_end), agg
 
     @torch.no_grad()
-    def _plain_loop(self, lat, embeds, num_inference_steps: int, g: float):
+    def _plain_loop(self, lat, embeds, num_inference_steps: int, g: float,
+                    ref_slots: Optional[tuple] = None,
+                    ref_cache: Optional[dict] = None):
+        """The plain CFG loop from the (already sigma-scaled) latent ``lat``.
+        With ``ref_slots`` it fills ``ref_cache`` with ``traj`` [S+1, h, w,
+        4] float32, ``qk`` {attn1 layer: (Q, K) [slots, S, C]} and
+        ``resnet`` {name: [slots, h', w', C']}, (Q, K) in the merged-head
+        layout that ``UNetControls.inject_qk`` takes; every entry is a copy
+        of the cond row."""
         h, w = lat.shape[1], lat.shape[2]
         sched = self.scheduler
         plan = sched.plan(num_inference_steps)
@@ -225,6 +298,12 @@ class RegionDiffusion:
         capture_last = CaptureSpec(self_probs=frozenset(self_layers),
                                    cross_probs=cross_names)
         capture_cross = CaptureSpec(cross_probs=cross_names)
+        slot_of = {s: j for j, s in enumerate(ref_slots or ())}
+        if ref_slots is not None:
+            traj = torch.empty((S + 1, *lat.shape[1:]), dtype=torch.float32,
+                               device=lat.device)
+            ref_cache.update(traj=traj, qk={}, resnet={})
+
         def tokens(r):  # of a level with r rows, at the latent's aspect
             return r * (r * w // h)
 
@@ -235,14 +314,18 @@ class RegionDiffusion:
                  for r in sorted(cross_by_res)}
         st = sched.init_state(lat.shape, self.device)
         for i in range(S):
-            t = int(plan.timesteps[i])
-            x = torch.cat([lat, lat], dim=0)
+            if ref_slots is not None:
+                traj[i].copy_(lat[0])
+            x = sched.scale_model_input(plan, i, torch.cat([lat, lat], dim=0))
             last, agg = i == S - 1, i >= self.agg_start_step
             # the reference keeps only the last step's self maps; cross
             # maps accumulate from agg_start_step on
             spec = capture_last if last else (
                 capture_cross if agg else CaptureSpec())
-            eps, aux = self.unet(x, t, embeds, capture=spec)
+            if i in slot_of:
+                spec = dataclasses.replace(
+                    spec, qk=True, resnet=frozenset({INJECT_RESNET_NAME}))
+            eps, aux = self.unet(x, plan.timesteps[i], embeds, capture=spec)
             if last and self_layers:
                 self_sum = sum(aux["self_probs"][n][1].float()
                                for n in self_layers)
@@ -250,10 +333,33 @@ class RegionDiffusion:
                 for r, ns in cross_by_res.items():
                     cross[r] += sum(aux["cross_probs"][n][1].float()
                                     for n in ns)
+            if i in slot_of:
+                self._store_slot(ref_cache, len(slot_of), slot_of[i], aux)
             eps = eps.float()
             e = eps[0:1] + g * (eps[1:2] - eps[0:1])
             lat, st = sched.step(plan, i, st, e, lat)
+        if ref_slots is not None:
+            traj[S].copy_(lat[0])
         return lat, self_sum, cross, self_layers, cross_by_res
+
+    @staticmethod
+    def _store_slot(cache: dict, n_slots: int, j: int, aux: dict) -> None:
+        """Copy the cond row's (Q, K) [H,S,hd] -> [S, H*hd] and resnet
+        feature into slot ``j``; the buffers are made at the first slot."""
+        for n, (q, k) in aux["self_qk"].items():
+            pair = [t[1].transpose(0, 1).reshape(t.shape[2], -1)
+                    for t in (q, k)]
+            if n not in cache["qk"]:
+                cache["qk"][n] = tuple(
+                    torch.empty((n_slots, *p.shape), dtype=p.dtype,
+                                device=p.device) for p in pair)
+            for buf, p in zip(cache["qk"][n], pair):
+                buf[j].copy_(p)
+        for n, f in aux["resnet_hidden"].items():
+            if n not in cache["resnet"]:
+                cache["resnet"][n] = torch.empty(
+                    (n_slots, *f.shape[1:]), dtype=f.dtype, device=f.device)
+            cache["resnet"][n][j].copy_(f[1])
 
     # ------------------------------------------------------------- rich pass
     def prompt_to_img(self, prompts: Sequence[str], negative_prompts="",
@@ -264,10 +370,16 @@ class RegionDiffusion:
                       use_guidance: bool = False,
                       inject_selfattn: float = 0.0,
                       inject_background: float = 0.0,
-                      seed: int = 0) -> np.ndarray:
+                      seed: int = 0, encoder_reuse: int = 1,
+                      encoder_schedule: str = "early",
+                      bf16_guidance: bool = False,
+                      guidance_downsample: int = 1,
+                      ref_cache: Optional[dict] = None) -> np.ndarray:
         """Rich region-based sampling. ``prompts``: region prompts, base
         prompt last; ``self.masks`` holds len(prompts) masks from
-        ``get_token_maps``."""
+        ``get_token_maps``. ``ref_cache``: the refer cache of a plain pass
+        of the same seed, base prompt, guidance and steps
+        (``produce_attn_maps(ref_capture_steps=...)``)."""
         text_format_dict = dict(text_format_dict or {})
         spec = RichControlSpec(
             guidance_scale=guidance_scale,
@@ -278,12 +390,17 @@ class RegionDiffusion:
                                                      999),
             color_guidance_weight=text_format_dict.get(
                 "color_guidance_weight", 1.0),
+            encoder_reuse=int(encoder_reuse),
+            encoder_schedule=encoder_schedule,
+            bf16_guidance=bool(bf16_guidance),
+            guidance_downsample=int(guidance_downsample),
         )
         embeds = self.get_text_embeds(list(prompts), negative_prompts)
         lat = self.produce_latents(
             embeds, height=height, width=width,
             num_inference_steps=num_inference_steps, latents=latents,
-            spec=spec, text_format_dict=text_format_dict, seed=seed)
+            spec=spec, text_format_dict=text_format_dict, seed=seed,
+            ref_cache=ref_cache)
         return self.decode_latents(lat)
 
     def produce_latents(self, text_embeddings: torch.Tensor,
@@ -291,19 +408,37 @@ class RegionDiffusion:
                         num_inference_steps: int = 50, latents=None,
                         spec: RichControlSpec = RichControlSpec(),
                         text_format_dict: Optional[dict] = None,
-                        seed: int = 0) -> torch.Tensor:
+                        seed: int = 0,
+                        ref_cache: Optional[dict] = None) -> torch.Tensor:
         """The rich loop on [uncond, spans..., base] embeddings; returns the
         final latent [1, h, w, 4] float32.
 
-        With ``inject_selfattn`` or ``inject_background`` above 0 a
-        reference trajectory (the plain CFG denoising of the base prompt
-        from the same latent) runs beside the rich one: each step is one
-        forward of [uncond, base, ref_uncond, ref_cond, spans...] in which
-        the span rows take the ref_cond row's (Q, K) at every
+        With ``inject_selfattn`` or ``inject_background`` above 0 the span
+        rows take the reference trajectory's (the plain CFG denoising of
+        the base prompt from the same latent) (Q, K) at every
         self-attention and its feature at the injected resnet while the
-        step's timestep is above ``(1 - inject_selfattn) * 1000``; at step
-        ``int(inject_background * S)`` the background region of the rich
-        latent is replaced by the reference's."""
+        step's timestep is above ``(1 - inject_selfattn) * 1000``, and at
+        step ``int(inject_background * S)`` the background region of the
+        latent is replaced by the reference's. Three flows give that:
+
+          * refer-precompute, when ``ref_cache`` matches this run
+            (``ref_cache_matches``): one forward of R+2 rows a step, the
+            stored (Q, K)/resnet of the step's slot going into rows 1..R;
+          * in-batch: the reference trajectory is denoised beside the rich
+            one, in one forward of [uncond, base, ref_u, ref_c, spans...]
+            (R+4 rows) where the span rows take row 3's (Q, K) and feature;
+          * in-batch with encoder reuse: two forwards a step,
+            [uncond, base, ref_u, ref_c] with the (Q, K)/resnet capture,
+            then the R span rows with row 3's pair injected, each with its
+            own encoder cache.
+
+        ``encoder_reuse`` N > 1 runs the UNet's down path only on the key
+        steps of ``encoder_key_gates`` and decodes the cached encoder
+        output with the current time embedding between them.
+        ``guidance_downsample`` d pools the x0 latent and the colour masks
+        by d before the guidance decode (d = 1 where it does not divide the
+        sizes); ``bf16_guidance`` runs that decode and its gradient through
+        a bfloat16 copy of the VAE."""
         fmt = dict(text_format_dict or {})
         dev = self.device
         h, w = height // self.vae_scale_factor, width // self.vae_scale_factor
@@ -312,11 +447,19 @@ class RegionDiffusion:
             raise ValueError(f"{n_styles} region prompts but "
                              f"{len(self.masks)} masks")
         R = n_styles - 1  # span regions (masks[:-1])
-        lat = self._init_latents(latents, h, w, seed)
         sched = self.scheduler
         plan = sched.plan(num_inference_steps)
+        if not np.issubdtype(plan.timesteps.dtype, np.integer):
+            raise ValueError(
+                f"{type(sched).__name__}: the rich pass indexes "
+                "alphas_cumprod with the plan's timesteps, which are not "
+                "integers here; the JAX package's produce_latents raises "
+                "IndexError there (rich_text_to_image_tpu/pipelines/"
+                "region_sd.py:772), and the port refuses the same request")
+        lat = self._init_latents(latents, h, w, seed) * getattr(
+            plan, "init_noise_sigma", 1.0)
         S = plan.num_steps
-        # per-step host gates (all static; region_diffusion.py:104-105)
+        # per-step host gates (region_diffusion.py:104-105)
         inject_gates = plan.timesteps.astype(np.float64) > (
             (1 - spec.inject_selfattn) * 1000)
         bg_step = int(spec.inject_background * S)
@@ -324,25 +467,47 @@ class RegionDiffusion:
         guidance_gates = ((plan.timesteps.astype(np.int64)
                            < spec.guidance_start_step) & spec.use_guidance)
         alpha_raw = sched.alphas_cumprod[plan.timesteps].astype(np.float32)
+        stride = max(int(spec.encoder_reuse), 1)
+        key_steps = encoder_key_gates(S, stride, spec.encoder_schedule)
+        enc_cache = {} if stride > 1 else None
+
+        flow = "plain"
+        if run_reference:
+            flow = "in_batch_two" if stride > 1 else "in_batch"
+            if ref_cache is not None:
+                want = tuple(np.nonzero(inject_gates)[0].tolist())
+                fp = ref_fingerprint(lat, text_embeddings[0],
+                                     text_embeddings[-1])
+                if ref_cache_matches(ref_cache, want, S, spec.guidance_scale,
+                                     (h, w), fp):
+                    flow = "refpre"
+                    slot_of = {s: j for j, s in enumerate(want)}
 
         # font-size reweighting on the base row only (the reference
-        # registers its font-size hooks around the base-prompt forward); the
-        # base row is the last of [uncond, spans..., base] and the second of
-        # the reference flow's [uncond, base, ref_u, ref_c, spans...]
+        # registers its font-size hooks around the base-prompt forward)
         tw, ts = make_token_weight_vectors(fmt.get("word_pos"),
                                            fmt.get("font_size"))
-        n_rows = R + 4 if run_reference else R + 2
-        base_row = 1 if run_reference else R + 1
-        tw_rows = ts_rows = None
-        if tw is not None:
-            tw_rows = torch.ones((n_rows, 77), dtype=torch.float32, device=dev)
-            ts_rows = torch.ones((n_rows, 77), dtype=torch.float32, device=dev)
-            tw_rows[base_row] = torch.from_numpy(tw).to(dev)
-            ts_rows[base_row] = torch.from_numpy(ts).to(dev)
+
+        def weight_rows(n, base):
+            if tw is None:
+                return None, None
+            rows = [torch.ones((n, 77), dtype=torch.float32, device=dev)
+                    for _ in range(2)]
+            for r, v in zip(rows, (tw, ts)):
+                r[base] = torch.from_numpy(v).to(dev)
+            return rows
+
         emb = text_embeddings
-        if run_reference:
+        if flow == "in_batch":
+            tw_rows, ts_rows = weight_rows(R + 4, 1)
             emb = torch.cat([emb[0:1], emb[-1:], emb[0:1], emb[-1:],
                              emb[1:1 + R]], dim=0)
+        elif flow == "in_batch_two":
+            tw_rows, ts_rows = weight_rows(4, 1)
+            emb_a = torch.cat([emb[0:1], emb[-1:], emb[0:1], emb[-1:]], dim=0)
+            emb_b = emb[1:1 + R]
+        else:
+            tw_rows, ts_rows = weight_rows(R + 2, R + 1)
 
         masks = torch.from_numpy(np.stack(
             [np.asarray(m, np.float32).reshape(h, w) for m in self.masks]
@@ -350,43 +515,69 @@ class RegionDiffusion:
         mask_sum = masks.sum(0)
         color = None
         if spec.use_guidance:
-            color = dict(
-                masks_px=torch.from_numpy(np.stack(
-                    [np.asarray(m, np.float32).reshape(height, width)
-                     for m in fmt["color_obj_atten"]])).to(dev),
-                target_rgb=torch.from_numpy(np.stack(
-                    [np.asarray(c, np.float32).reshape(3)
-                     for c in fmt["target_RGB"]])).to(dev),
-                all=torch.from_numpy(np.asarray(
-                    fmt["color_obj_atten_all"], np.float32).reshape(h, w)
-                ).to(dev)[None, :, :, None],
-                weight=float(spec.color_guidance_weight),
-            )
+            color = self._color_inputs(fmt, height, width, h, w,
+                                       spec.guidance_downsample,
+                                       spec.bf16_guidance,
+                                       spec.color_guidance_weight)
         g = float(spec.guidance_scale)
-        lat_ref = lat if run_reference else None
+        lat_ref = lat if flow.startswith("in_batch") else None
         st = sched.init_state(
-            (2 if run_reference else 1, *lat.shape[1:]), dev)
+            (2 if lat_ref is not None else 1, *lat.shape[1:]), dev)
         for i in range(S):
-            t = int(plan.timesteps[i])
+            t = plan.timesteps[i]
+            gate, key = bool(inject_gates[i]), bool(key_steps[i])
             with torch.no_grad():
-                if run_reference:
-                    x = torch.cat([lat, lat, lat_ref, lat_ref] + [lat] * R,
-                                  dim=0)
+                lat_in = sched.scale_model_input(plan, i, lat)
+                if lat_ref is not None:
+                    ref_in = sched.scale_model_input(plan, i, lat_ref)
+                if flow == "in_batch":
+                    x = torch.cat([lat_in, lat_in, ref_in, ref_in]
+                                  + [lat_in] * R, dim=0)
                     controls = UNetControls(
                         token_weights=tw_rows, token_signs=ts_rows,
-                        inject_gate=bool(inject_gates[i]),
-                        inject_src=3, inject_dst=(4, 4 + R))
+                        inject_gate=gate, inject_src=3, inject_dst=(4, 4 + R))
                     eps_all, _ = self.unet(x, t, emb, controls)
                     eps_all = eps_all.float()
                     eps_uncond, eps_base = eps_all[0:1], eps_all[1:2]
                     eps_spans = eps_all[4:]
-                    eps_ref = eps_all[2:3] + g * (eps_all[3:4] - eps_all[2:3])
+                elif flow == "in_batch_two":
+                    eps_all, aux = self._unet_fwd(
+                        torch.cat([lat_in, lat_in, ref_in, ref_in], dim=0),
+                        t, emb_a,
+                        UNetControls(token_weights=tw_rows,
+                                     token_signs=ts_rows),
+                        CAPTURE_REF, enc_cache, "ref", key)
+                    eps_all = eps_all.float()
+                    eps_uncond, eps_base = eps_all[0:1], eps_all[1:2]
+                    eps_spans = eps_all[4:]
+                    if R > 0:
+                        controls = UNetControls(
+                            inject_gate=gate,
+                            inject_qk={n: (q[3:4], k[3:4]) for n, (q, k)
+                                       in aux["self_qk"].items()},
+                            inject_resnet={n: f[3:4] for n, f
+                                           in aux["resnet_hidden"].items()})
+                        eps_spans, _ = self._unet_fwd(
+                            lat_in.repeat(R, 1, 1, 1), t, emb_b, controls,
+                            EMPTY_CAPTURE, enc_cache, "spans", key)
+                        eps_spans = eps_spans.float()
                 else:
-                    x = torch.cat([lat] * (R + 2), dim=0)
                     controls = (UNetControls(token_weights=tw_rows,
                                              token_signs=ts_rows)
                                 if tw_rows is not None else None)
-                    eps_all, _ = self.unet(x, t, emb, controls)
+                    if flow == "refpre" and gate:
+                        j = slot_of[i]
+                        controls = UNetControls(
+                            token_weights=tw_rows, token_signs=ts_rows,
+                            inject_gate=True,
+                            inject_qk={n: (q[j:j + 1], k[j:j + 1]) for n, (q, k)
+                                       in ref_cache["qk"].items()},
+                            inject_resnet={n: f[j:j + 1] for n, f
+                                           in ref_cache["resnet"].items()},
+                            inject_dst=(1, 1 + R))
+                    eps_all, _ = self._unet_fwd(
+                        torch.cat([lat_in] * (R + 2), dim=0), t, emb,
+                        controls, EMPTY_CAPTURE, enc_cache, "rich", key)
                     eps_all = eps_all.float()
                     eps_uncond = eps_all[0:1]
                     eps_spans = eps_all[1:1 + R]
@@ -398,8 +589,9 @@ class RegionDiffusion:
                     noise_text = noise_text + (eps_spans * masks[:-1]).sum(
                         0, keepdim=True)
                 noise = noise_uncond + g * (noise_text - noise_uncond)
-                if run_reference:
+                if lat_ref is not None:
                     # both trajectories through one scheduler step
+                    eps_ref = eps_all[2:3] + g * (eps_all[3:4] - eps_all[2:3])
                     pair, st = sched.step(
                         plan, i, st, torch.cat([noise, eps_ref], dim=0),
                         torch.cat([lat, lat_ref], dim=0))
@@ -409,18 +601,80 @@ class RegionDiffusion:
             if guidance_gates[i]:
                 lat = self._guided(lat, noise, float(alpha_raw[i]), color)
             if spec.inject_background > 0 and i == bg_step:
-                # background injection (region_diffusion.py:171-173)
+                # background injection (region_diffusion.py:171-173); the
+                # refer trajectory after step i is the stored latent i+1
+                src = (ref_cache["traj"][min(bg_step + 1, S)][None]
+                       if flow == "refpre" else lat_ref)
                 bg = masks[-1][None]
-                lat = lat_ref * bg + lat * (1 - bg)
+                lat = src * bg + lat * (1 - bg)
         return lat
+
+    def _unet_fwd(self, x, t, emb_text, controls, capture, enc_cache,
+                  name: str, key: bool):
+        """The UNet forward, or with ``enc_cache`` (encoder reuse) its
+        halves: ``encode`` on a key step, stored under ``name``, else the
+        stored output; ``decode`` always, with the current time embedding
+        (arXiv 2312.09608 §4)."""
+        if enc_cache is None:
+            return self.unet(x, t, emb_text, controls, capture)
+        if controls is not None:
+            controls.check_supported()
+        emb = self.unet.embed_time(t, x.shape[0])
+        if key:
+            enc_cache[name] = self.unet.encode(x, emb, emb_text, controls,
+                                               capture)
+        return self.unet.decode(enc_cache[name], emb, emb_text, controls,
+                                capture)
+
+    def _guidance_vae(self, bf16: bool) -> AutoencoderKL:
+        """The VAE of the guided decode: the pipeline's float32 one, or a
+        bfloat16 copy of it, made once."""
+        if not bf16:
+            return self.vae
+        if self._vae_bf16 is None:
+            self._vae_bf16 = copy.deepcopy(self.vae).to(torch.bfloat16)
+        return self._vae_bf16
+
+    def _color_inputs(self, fmt: dict, height: int, width: int, h: int,
+                      w: int, downsample: int, bf16: bool,
+                      weight: float) -> dict:
+        """The colour guidance's inputs on the device: the pixel masks
+        (pooled by the downsample factor d, which falls back to 1 where it
+        does not divide the sizes), target colours, the latent mask the
+        gradient is applied under, the weight, d and the VAE to decode
+        with."""
+        dev = self.device
+        d = max(int(downsample), 1)
+        if h % d or w % d or height % d or width % d:
+            d = 1  # non-divisible sizes: the exact path
+        m = torch.from_numpy(np.stack(
+            [np.asarray(a, np.float32).reshape(height, width)
+             for a in fmt["color_obj_atten"]])).to(dev)
+        if d > 1:
+            n = m.shape[0]
+            m = m.reshape(n, height // d, d, width // d, d).mean(dim=(2, 4))
+        return dict(
+            masks_px=m,
+            target_rgb=torch.from_numpy(np.stack(
+                [np.asarray(c, np.float32).reshape(3)
+                 for c in fmt["target_RGB"]])).to(dev),
+            all=torch.from_numpy(np.asarray(
+                fmt["color_obj_atten_all"], np.float32).reshape(h, w)
+            ).to(dev)[None, :, :, None],
+            weight=float(weight), ds=d, vae=self._guidance_vae(bf16))
 
     def _color_loss(self, lat, noise, a: float, color: dict) -> torch.Tensor:
         """The reference's colour loss (region_diffusion.py:151-168): the
         squared distance of each colour span's mean RGB in the decoded x0
-        prediction from its target, x100, summed."""
+        prediction from its target, x100, summed; the x0 prediction pooled
+        by ``color["ds"]`` first."""
         a32 = torch.tensor(a, dtype=torch.float32, device=lat.device)
         x0 = (lat - noise * torch.sqrt(1 - a32)) / torch.sqrt(a32)
-        imgs = self._decode_imgs(x0)
+        d = color["ds"]
+        if d > 1:
+            _, hh, ww, c = x0.shape
+            x0 = x0.reshape(1, hh // d, d, ww // d, d, c).mean(dim=(2, 4))
+        imgs = self._decode_imgs(x0, color["vae"]).float()
         m = color["masks_px"]
         num = torch.einsum("bhwc,nhw->nc", imgs, m)
         den = m.sum(dim=(1, 2))[:, None] + 1e-12

@@ -127,6 +127,9 @@ class PNDMScheduler:
                                    device=device),
         )
 
+    def init_noise_sigma(self) -> float:
+        return 1.0
+
     def scale_model_input(self, plan, i, sample):
         del plan, i
         return sample

@@ -7,6 +7,8 @@ Both sides run in float32 on the CPU on the same numpy inputs. Tolerance:
 13 UNet calls with the PNDM multistep, with sums in another order).
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,10 +22,8 @@ from rich_text_to_image_tpu.pipelines import region_sd as JP
 from rich_text_to_image_tpu_torch import weights
 from rich_text_to_image_tpu_torch.cli import sample as t_cli
 from rich_text_to_image_tpu_torch.models import unet as T
-from rich_text_to_image_tpu_torch.models.clip import CLIPTextModel
-from rich_text_to_image_tpu_torch.models.tokenizer import CLIPTokenizer
-from rich_text_to_image_tpu_torch.models.vae import AutoencoderKL
 from rich_text_to_image_tpu_torch.pipelines import region_sd as TP
+from torch_port_pipes import tiny_pipes
 from torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RES = T.INJECT_RESNET_NAME
@@ -157,18 +157,7 @@ H, PX, STEPS = 8, 16, 12
 
 @pytest.fixture(scope="module")
 def pipes():
-    jp = JP.RegionDiffusion.random_init(
-        seed=0, unet_cfg=C.TINY_UNET, vae_cfg=C.TINY_VAE,
-        text_cfg=C.TINY_TEXT, dtype=jnp.float32)
-    tree = lambda p: jax.tree.map(np.asarray, p)
-    tp = TP.RegionDiffusion(
-        weights.load_flax(T.UNet2DCondition(C.TINY_UNET),
-                          tree(jp.unet_params), "unet"),
-        weights.load_flax(AutoencoderKL(C.TINY_VAE),
-                          tree(jp.vae_params), "vae"),
-        weights.load_flax(CLIPTextModel(jp.text_encoder.cfg),
-                          tree(jp.text_params), "text"),
-        CLIPTokenizer.byte_level(), C.TINY_UNET, C.TINY_VAE, device="cpu")
+    jp, tp = tiny_pipes(agg_start_step=10)
     rng = np.random.default_rng(5)
     soft = rng.random((3, 1, H, H)).astype(np.float32) + 0.1
     soft /= soft.sum(axis=0, keepdims=True)
@@ -221,13 +210,33 @@ def test_rich_batch_is_r_plus_4(pipes):
     assert seen == [6, 6, 6]  # R = 2 spans: [uncond, base, ref_u, ref_c, 2]
 
 
-def test_cli_injection_needs_no_ref_precompute():
-    """With the default flag set the JAX CLI would run the refer-precompute
-    flow, which is not ported: the port's CLI exits, and runs the in-batch
-    flow only when told to."""
-    parse = t_cli.make_parser().parse_args
-    for flags in (["--inject_selfattn", "0.3"], ["--inject_background", "0.3"]):
-        with pytest.raises(SystemExit, match="refer-precompute"):
-            t_cli.check_args(parse(flags))
-        t_cli.check_args(parse(flags + ["--no_ref_precompute"]))
-    t_cli.check_args(parse(["--no_ref_precompute"]))
+def test_cli_injection_needs_no_ref_precompute(pipes, tmp_path):
+    """With the default flag set the injection flags run the refer-precompute
+    flow, as in the JAX CLI: the plain pass keeps a refer cache and the rich
+    pass runs R+2 rows a step; ``--no_ref_precompute`` keeps the in-batch
+    flow of R+4 rows."""
+    _, tp, _ = pipes
+    text = json.dumps({"ops": [
+        {"insert": "a "}, {"attributes": {"link": "a tall tree"},
+                           "insert": "garden"},
+        {"insert": " with a "}, {"attributes": {"color": "#ff0000"},
+                                 "insert": "rose"}]})
+    param = {"text_input": json.loads(text), "height": PX, "width": PX,
+             "guidance_weight": 8.5, "steps": 3, "noise_index": 1,
+             "negative_prompt": ""}
+    for flags, rows in (([], 4), (["--no_ref_precompute"], 6)):
+        args = t_cli.make_parser().parse_args(
+            ["--run_dir", str(tmp_path), "--device", "cpu",
+             "--num_segments", "3", "--inject_selfattn", "0.3",
+             "--inject_background", "0.3", *flags])
+        t_cli.check_args(args)
+        seen = []
+        hook = tp.unet.register_forward_pre_hook(
+            lambda mod, inp: seen.append(inp[0].shape[0]))
+        try:
+            t_cli.run_sample(tp, args, param, save=False)
+        finally:
+            hook.remove()
+        # R = 2 spans (the footnote and the colour); PNDM: 4 calls a pass
+        assert seen == [2] * 4 + [rows] * 4, (flags, seen)
+        assert (tp.ref_cache is not None) == (not flags)

@@ -87,7 +87,7 @@ def test_color_loss_gradient_matches_jax_grad():
     pipe.vae, pipe.vae_cfg = tv.requires_grad_(False), C.TINY_VAE
     color = dict(masks_px=torch.from_numpy(masks),
                  target_rgb=torch.from_numpy(target),
-                 all=torch.ones((1, 8, 8, 1)), weight=1.0)
+                 all=torch.ones((1, 8, 8, 1)), weight=1.0, ds=1, vae=tv)
     got = lat - pipe._guided(torch.from_numpy(lat), torch.from_numpy(noise),
                              a, color).numpy()
     _close(got, want)

@@ -11,25 +11,19 @@ in another order (max |d| seen ~2e-6 relative).
 
 import json
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from rich_text_to_image_tpu.models import config as C
 from rich_text_to_image_tpu.ops.resize import resize_bicubic as j_resize
 from rich_text_to_image_tpu.pipelines import region_sd as J
 from rich_text_to_image_tpu.utils import richtext
 from rich_text_to_image_tpu.utils import token_maps as j_tm
-from rich_text_to_image_tpu_torch import weights
 from rich_text_to_image_tpu_torch.cli import sample as t_cli
-from rich_text_to_image_tpu_torch.models.clip import CLIPTextModel
-from rich_text_to_image_tpu_torch.models.tokenizer import CLIPTokenizer
-from rich_text_to_image_tpu_torch.models.unet import UNet2DCondition
 from rich_text_to_image_tpu_torch.models import unet as T_unet
-from rich_text_to_image_tpu_torch.models.vae import AutoencoderKL
 from rich_text_to_image_tpu_torch.pipelines import region_sd as T
+from torch_port_pipes import tiny_pipes
 from torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 12  # 13 plan steps, past agg_start_step
@@ -51,20 +45,7 @@ def _close(got, want, rel=1e-4):
 
 @pytest.fixture(scope="module")
 def pipes():
-    jp = J.RegionDiffusion.random_init(
-        seed=0, unet_cfg=C.TINY_UNET, vae_cfg=C.TINY_VAE,
-        text_cfg=C.TINY_TEXT, dtype=jnp.float32, agg_start_step=3)
-    tree = lambda p: jax.tree.map(np.asarray, p)
-    tp = T.RegionDiffusion(
-        weights.load_flax(UNet2DCondition(C.TINY_UNET),
-                          tree(jp.unet_params), "unet"),
-        weights.load_flax(AutoencoderKL(C.TINY_VAE),
-                          tree(jp.vae_params), "vae"),
-        weights.load_flax(CLIPTextModel(jp.text_encoder.cfg),
-                          tree(jp.text_params), "text"),
-        CLIPTokenizer.byte_level(), C.TINY_UNET, C.TINY_VAE,
-        agg_start_step=3, device="cpu")
-    return jp, tp
+    return tiny_pipes(agg_start_step=3)
 
 
 @pytest.fixture(scope="module")
@@ -164,36 +145,71 @@ def test_injection_raises(pipes):
     (PX, PX, []), (48, 48, []), (PX, 32, []), (32, PX, []),
     (PX, PX, ["--inject_selfattn", "0.3", "--inject_background", "0.3",
               "--no_ref_precompute"]),
-], ids=["16x16", "48x48", "16x32", "32x16", "16x16-inject"])
+    (PX, PX, ["--inject_selfattn", "0.3", "--inject_background", "0.3"]),
+], ids=["16x16", "48x48", "16x32", "32x16", "16x16-inject",
+        "16x16-inject-refpre"])
 def test_cli_flow_runs_on_cpu(pipes, tmp_path, px_h, px_w, extra):
     """The CLI's run_sample at the tiny config: images of the right shape,
     written as PNG; at the square size of the parity tests, at one whose
     latent (24 rows) has its segmentation level elsewhere, at two
     non-square sizes (the tiny VAE halves the size, and the UNet needs
-    latent sides in multiples of 8), and with injection."""
+    latent sides in multiples of 8), and with injection through the
+    in-batch and the refer-precompute flow."""
     _, tp = pipes
-    text = json.dumps(DOC)
-    args = t_cli.make_parser().parse_args(
-        ["--run_dir", str(tmp_path), "--sample_steps", "4", "--device", "cpu",
-         "--rich_text_json", text, "--num_segments", "3", *extra])
-    t_cli.check_args(args)
-    param = {"text_input": json.loads(text), "height": px_h, "width": px_w,
-             "guidance_weight": 8.5, "steps": 4, "noise_index": 1,
-             "negative_prompt": ""}
-    plain_img, rich_img, seconds = t_cli.run_sample(tp, args, param)
+    plain_img, rich_img, seconds = _run_cli(tp, tmp_path, px_h, px_w, extra)
     assert plain_img.shape == rich_img.shape == (1, px_h, px_w, 3)
     assert plain_img.dtype == np.uint8
     assert rich_img.std() > 0
     assert set(seconds) == {"plain_pass", "token_maps", "rich_pass"}
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "seed1_plain.png", "seed1_rich.png"]
+    refpre = "--inject_selfattn" in extra and "--no_ref_precompute" not in extra
+    assert (tp.ref_cache is not None) == refpre
+
+
+def _run_cli(tp, run_dir, px_h, px_w, extra):
+    """check_args, then run_sample at px_h x px_w with the CLI's flags
+    ``extra`` and the scheduler they name."""
+    text = json.dumps(DOC)
+    args = t_cli.make_parser().parse_args(
+        ["--run_dir", str(run_dir), "--sample_steps", "4", "--device", "cpu",
+         "--rich_text_json", text, "--num_segments", "3", *extra])
+    t_cli.check_args(args)
+    param = {"text_input": json.loads(text), "height": px_h, "width": px_w,
+             "guidance_weight": 8.5, "steps": 4, "noise_index": 1,
+             "negative_prompt": ""}
+    default = tp.scheduler
+    tp.scheduler = t_cli.make_scheduler(args.scheduler) or default
+    try:
+        return t_cli.run_sample(tp, args, param)
+    finally:
+        tp.scheduler = default
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "SDXL"], ["--scheduler", "euler"], ["--inject_selfattn", "0.3"],
-    ["--encoder_reuse", "2"], ["--bf16_guidance"], ["--guidance_downsample", "2"],
-    ["--mesh", "auto"], ["--inject_background", "0.3"], ["--save_attn"],
-])  # injection without --no_ref_precompute is the refer-precompute flow
+    ["--inject_selfattn", "0.3"], ["--encoder_reuse", "2"],
+    ["--bf16_guidance"], ["--guidance_downsample", "2"],
+    ["--inject_background", "0.3"], ["--bf16_vae"],
+    ["--scheduler", "ddim"], ["--scheduler", "dpm"],
+    ["--encoder_reuse", "2", "--encoder_schedule", "uniform",
+     "--inject_selfattn", "0.3", "--no_ref_precompute"],
+])
+def test_cli_accepts_ported_flags(pipes, tmp_path, argv):
+    """Flags the port's CLI turned away before this slice: each passes
+    check_args and runs the CLI flow at 16x16 (``--bf16_vae`` is accepted
+    and not read, as in the JAX CLI's SD branch)."""
+    _, tp = pipes
+    plain_img, rich_img, _ = _run_cli(tp, tmp_path, PX, PX, argv)
+    assert plain_img.shape == rich_img.shape == (1, PX, PX, 3)
+    assert np.isfinite(rich_img.astype(np.float64)).all()
+    assert rich_img.std() > 0
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "SDXL"], ["--scheduler", "euler"], ["--mesh", "auto"],
+    ["--save_attn"], ["--model", "AnimeXL"],
+])
 def test_cli_rejects_unported_flags(argv):
-    with pytest.raises(SystemExit):
+    with pytest.raises(SystemExit,
+                       match="region_sd.py:772" if "euler" in argv else None):
         t_cli.check_args(t_cli.make_parser().parse_args(argv))
