@@ -39,7 +39,15 @@ is no CUDA device or the port's package is not beside it. Phases, in order:
      batch 2 and R+2 = 4, one colour-guided step exact, pooled by 2 and in
      bfloat16, the final decode);
  13. profile: one UNet forward at batch 2 and 4 under ``torch.profiler``,
-     its device kernel count and the device's idle share.
+     its device kernel count and the device's idle share;
+ 14. SDXL: a full-width SDXL pipeline (random weights drawn on the card);
+     one CFG forward at a 128^2 latent through the kernels (head dim 64)
+     against the plain attention, with the capture of the 60 32^2 layers
+     summed; the CLI flow with ``--model SDXL`` at 1024^2 under Euler
+     (plain pass, token maps, rich pass with colour guidance), asserting
+     its exact launches, the rich batch, the watermark and the peak device
+     memory; the same request with injection through the refer cache; the
+     per-call times and the profile of the SDXL forward.
 
 ``--kernels-only`` stops after phase 3. The line before the last lists the
 kernels as JSON; the last line is ``{"ok": true, "device": {...}}``. Any
@@ -48,6 +56,8 @@ failure raises.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -91,6 +101,17 @@ STEPS_SHORT = 4  # the gate-on, injection, scheduler and turbo samples
 # and R+2 against R+4; about what the injection itself moves the image at
 # 4 steps, 1.65), held with room for the card's run-to-run spread
 REFPRE_MAX_DIFF = 4.0
+
+# the inject:, refpre: and inject-nobg: paths take fixed region masks, so
+# that the background holds a share of the latent (with random weights the
+# token maps give it all to the spans): the footnote span the left third,
+# the coloured span the middle one, the background the right one
+FIXED_MASK_THIRDS = 3
+
+SDXL_SIZE = 1024  # the SDXL CLI's default, a 128^2 latent
+# the SDXL attn1 layers at 1024^2 (models/config.py SDXL_UNET): 10 at the
+# 64^2 level, 60 at 32^2 (the segmentation level, all captured)
+SDXL_SELF_64, SDXL_SELF_32 = 10, 60
 
 ATTN_SRC = "rich_text_to_image_tpu_torch/csrc/attention.cu"
 KERNELS = {
@@ -237,10 +258,12 @@ def _bound_ms(b, h, s, d, pavg: bool, sm_hz: float):
 # (the only one that captures, so K3 sees no other), R+2 in the rich pass and
 # R+4 in the rich pass with injection (512^2 only). Besides: ragged S, the
 # 1280-channel level's head dim 160, a head dim that runs at a wider
-# instantiation (64 at 80), the streaming bucket at the 128^2 level of a
+# instantiation (56 at 64), the streaming bucket at the 128^2 level of a
 # 1024^2 sample and with named blocks, and for attn_fwd_kernel's tiles of
 # 64, 128 and 192 rows: S that is no multiple of the tile, and batch 1
-# shapes small enough for the 64-row tile.
+# shapes small enough for the 64-row tile. SDXL at 1024^2 (head dim 64 at
+# every level: 10 heads at 64^2, 20 at 32^2) adds its plain pass's batch 2,
+# its rich pass's R+2 and a ragged S.
 _RICH, _INJ = REGIONS + 2, REGIONS + 4
 ATTN_CASES = [
     ("K1_attn_fwd_64x64", "fwd", 2, 8, 4096, 40, "full", {}),
@@ -255,6 +278,12 @@ ATTN_CASES = [
     ("K1_attn_fwd_64x64", "fwd", 2, 8, 2304, 80, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", _RICH, 8, 2304, 80, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", 2, 8, 1024, 64, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", 2, 8, 1024, 56, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", 2, 10, 4096, 64, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", _RICH, 10, 4096, 64, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", 2, 20, 1024, 64, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", _RICH, 20, 1024, 64, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", 2, 20, 1000, 64, "full", {}),
     ("K2_attn_fwd_32x32", "fwd", 2, 8, 1024, 80, "full_t", {}),
     ("K2_attn_fwd_32x32", "fwd", _RICH, 8, 1024, 80, "full_t", {}),
     ("K2_attn_fwd_32x32", "fwd", _INJ, 8, 1024, 80, "full_t", {}),
@@ -266,6 +295,8 @@ ATTN_CASES = [
     ("K3_attn_avgp_32x32", "avgp", 2, 8, 2304, 80, "avgp", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 8, 576, 160, "avgp", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 8, 1024, 160, "avgp", {}),
+    ("K3_attn_avgp_32x32", "avgp", 2, 20, 1024, 64, "avgp", {}),
+    ("K3_attn_avgp_32x32", "avgp", 2, 20, 1000, 64, "avgp", {}),
     ("K4_attn_stream_96x96", "fwd", 2, 8, 9216, 40, "stream", {}),
     ("K4_attn_stream_96x96", "fwd", _RICH, 8, 9216, 40, "stream", {}),
     ("K4_attn_stream_96x96", "fwd", 2, 8, 9000, 40, "stream", {}),
@@ -319,7 +350,7 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
 
     from rich_text_to_image_tpu_torch.ops import attention as A
 
-    rows, k4_tiles = {}, {}
+    rows, k4_tiles, sdxl = {}, {}, {}
     sm_hz = _max_sm_hz()
     for name, kind, b, h, s, d, bucket, kw in cases:
         q, k, v = _qkv(b, h, s, d, seed=s + d + b)
@@ -373,6 +404,12 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"{line}")
+        entry = {"shape": [b, h, s, d], "launches": None, "max_abs_err": err,
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                 "bound_by": bound_by,
+                 "library_ms": None if avgp else sdpa_ms}
+        if d == 64 and not kw and (h, s) in ((10, 4096), (20, 1024)):
+            sdxl.setdefault(name, []).append(entry)
         if (b, h, s, d) == KERNELS[name][2] and not kw:
             rows[name] = {
                 "name": name, "route": "cuda", "source": KERNELS[name][1],
@@ -386,11 +423,40 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
             }
     print("kernel K4 tiles (query rows a CTA, keys a tile) picked by "
           "ops/attention._fwd_tile: " + json.dumps(k4_tiles), flush=True)
+    for name, entries in sdxl.items():
+        rows[name]["sdxl_d64"] = entries
+    _capture_accumulated(SDXL_SELF_32)
     q, k, v = _qkv(2, 8, 4096, 40, seed=2)
     print("kernel K1 wrapper host us a launch at [2,8,4096,40]: "
           f"{_host_us(lambda: A.flash_attention(q, k, v, 40 ** -0.5)):.2f}",
           flush=True)
     return rows
+
+
+def _capture_accumulated(layers: int) -> None:
+    """The SDXL plain pass sums the capture's head average over its 60
+    32^2 layers (and over the steps): ``layers`` launches at [2,20,1024,64]
+    on inputs of their own, summed, against the sum of the plain
+    versions, within PAVG_RTOL of its max."""
+    import torch
+
+    from rich_text_to_image_tpu_torch.ops import attention as A
+
+    got = want = None
+    for i in range(layers):
+        q, k, v = _qkv(2, 20, 1024, 64, seed=1000 + i)
+        p = A.flash_attention_avg_probs(q, k, v, 0.125)[1]
+        p_ref = A.flash_attention_avg_probs_plain(q, k, v, 0.125)[1]
+        got = p if got is None else got + p
+        want = p_ref if want is None else want + p_ref
+    torch.cuda.synchronize()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    print(f"kernel K3_attn_avgp_32x32 summed over {layers} launches at "
+          f"[2,20,1024,64] (the SDXL capture of one step): rel max|d|="
+          f"{err:.3e} (tol {PAVG_RTOL})", flush=True)
+    if not err <= PAVG_RTOL:
+        raise AssertionError("the summed capture disagrees with the plain "
+                             "versions' sum")
 
 
 def _conv_inputs(b, hh, ww, c, o, seed):
@@ -747,19 +813,58 @@ def _batches(pipe, fn):
         hook.remove()
 
 
-def refpre_phase(pipe, out_dir: str, in_batch_img, no_inject_img) -> None:
+@contextlib.contextmanager
+def _fixed_masks(pipe):
+    """While open, the rich pass of ``pipe`` takes fixed region masks in
+    place of the token maps': equal vertical bands, one a region prompt
+    (the spans, then the base prompt's, which is the background, on the
+    right)."""
+    import numpy as np
+
+    orig = pipe.prompt_to_img
+
+    def run(prompts, *a, height, width, **kw):
+        f = pipe.vae_scale_factor
+        h, w, n = height // f, width // f, len(prompts)
+        masks = np.zeros((n, 1, h, w), np.float32)
+        edges = np.linspace(0, w, n + 1).astype(int)
+        for i in range(n):
+            masks[i, :, :, edges[i]:edges[i + 1]] = 1.0
+        pipe.masks = list(masks)
+        return orig(prompts, *a, height=height, width=width, **kw)
+
+    pipe.prompt_to_img = run
+    try:
+        yield
+    finally:
+        del pipe.prompt_to_img
+
+
+def _background_diff(a, b, n_regions: int) -> float:
+    """Mean |a - b| over the background band of ``_fixed_masks`` (the last
+    of ``n_regions`` vertical bands), in uint8 steps."""
+    w = a.shape[2]
+    x0 = w - w // n_regions
+    return _image_diff(a[:, :, x0:], b[:, :, x0:])
+
+
+def refpre_phase(pipe, out_dir: str, in_batch_img, no_inject_img,
+                 no_bg_img) -> None:
     """The injection request of the ``inject:`` phase through the CLI's
     default flow: the plain pass keeps the refer cache, the rich pass runs
     R+2 rows a step and injects from it. Fails if the rich pass fell back
     to the in-batch flow (R+4 rows), if a launch count differs from the
     in-batch flow's, if the image is further than ``REFPRE_MAX_DIFF`` from
     the in-batch one (same seed and text), or if it equals the image of the
-    run without injection (the same R+2 rows but for the injection)."""
+    run without injection (the same R+2 rows but for the injection), or
+    if its background band equals the run's without background injection
+    (the refer latent composited under the fixed background mask)."""
     calls = pipe.scheduler.plan(STEPS_SHORT).num_steps
-    (launches, _, _, rich, _), seen = _batches(pipe, lambda: sample_phase(
-        "refpre", pipe, out_dir, 512, STEPS_SHORT,
-        ["--inject_selfattn", "0.3", "--inject_background", "0.3"],
-        agg_start=1))
+    with _fixed_masks(pipe):
+        (launches, _, _, rich, _), seen = _batches(pipe, lambda: sample_phase(
+            "refpre", pipe, out_dir, 512, STEPS_SHORT,
+            ["--inject_selfattn", "0.3", "--inject_background", "0.3"],
+            agg_start=1))
     _expect("refpre", launches, {"full": 2 * calls * 5, "avgp": 5,
                                  "full_t": 2 * calls * 5 - 5})
     if seen != [2] * calls + [REGIONS + 2] * calls:
@@ -775,19 +880,24 @@ def refpre_phase(pipe, out_dir: str, in_batch_img, no_inject_img) -> None:
     total = sum(t.numel() * t.element_size() for t in tensors)
     diff = _image_diff(rich, in_batch_img)
     moved = _image_diff(rich, no_inject_img)
+    bg_moved = _background_diff(rich, no_bg_img, REGIONS + 1)
     print(f"refpre: rich batch R+2 = {REGIONS + 2} in {calls} calls; refer "
           f"cache {len(cache['steps'])} slots (steps {list(cache['steps'])})"
           f", {pipe._ref_qk_bytes_per_slot((64, 64))} bytes a slot, "
           f"{total} bytes in all with the trajectory; mean |image "
           f"difference| against the in-batch flow {diff:.4f} of 255 (bound "
           f"{REFPRE_MAX_DIFF}), against the run without injection "
-          f"{moved:.4f}", flush=True)
+          f"{moved:.4f}, in the background band against the run without "
+          f"background injection {bg_moved:.4f}", flush=True)
     if diff > REFPRE_MAX_DIFF:
         raise AssertionError("refpre: the image is too far from the "
                              "in-batch flow's")
     if moved == 0.0:
         raise AssertionError("refpre: the injection did not change the "
                              "image")
+    if bg_moved == 0.0:
+        raise AssertionError("refpre: the background injection did not "
+                             "change the background")
 
 
 def scheduler_phases(pipe, out_dir: str, pndm_imgs) -> None:
@@ -872,6 +982,218 @@ def turbo_phase(pipe, out_dir: str, exact_img) -> None:
           flush=True)
 
 
+def _xl_inputs(xl, b: int, seed: int):
+    """A [b,128,128,4] latent batch, b text and pooled rows and the time
+    ids of a 1024^2 SDXL forward."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lat = torch.randn((1, 128, 128, 4), generator=g, device="cuda")
+    emb, pooled = xl.encode_prompt(["a cat", "a scooter", "a palm"][:b - 1],
+                                   "")
+    return (torch.cat([lat] * b), emb, pooled,
+            xl._time_ids(SDXL_SIZE, SDXL_SIZE))
+
+
+def sdxl_unet_phase(xl) -> None:
+    """One full-width SDXL CFG forward at a 128^2 latent through the
+    kernels (10 K1 launches at 64^2, the 60 32^2 layers through the
+    capture) against the plain attention: eps, each layer's head average
+    and their sum over the 60 layers (what the plain pass accumulates),
+    each within UNET_RTOL of its max."""
+    import torch
+
+    from rich_text_to_image_tpu_torch.models.unet import CaptureSpec
+    from rich_text_to_image_tpu_torch.ops import attention as A
+
+    _, self_layers, cross_by_res = xl._capture_layout((128, 128))
+    spec = CaptureSpec(self_probs=frozenset(self_layers),
+                       cross_probs=frozenset(
+                           n for ns in cross_by_res.values() for n in ns))
+    x, emb, pooled, tid = _xl_inputs(xl, 2, 1)
+    with torch.no_grad():
+        A.reset_launches()
+        eps_k, aux_k = xl._fwd(x, 500, emb, pooled, tid, capture=spec)
+        torch.cuda.synchronize()
+        launched = dict(A.LAUNCHES_BY_DIM)
+        with A.plain_attention():
+            eps_p, aux_p = xl._fwd(x, 500, emb, pooled, tid, capture=spec)
+        torch.cuda.synchronize()
+    want = {("full", 64): SDXL_SELF_64, ("avgp", 64): SDXL_SELF_32}
+    if len(self_layers) != SDXL_SELF_32 or launched != want:
+        raise AssertionError(f"sdxl-unet: launches {launched}, expected "
+                             f"{want} ({len(self_layers)} capture layers)")
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+
+    e_err = rel(eps_k, eps_p)
+    p_err = max(rel(aux_k["self_probs"][n], aux_p["self_probs"][n])
+                for n in self_layers)
+    s_err = rel(sum(aux_k["self_probs"][n] for n in self_layers),
+                sum(aux_p["self_probs"][n] for n in self_layers))
+    fin = bool(torch.isfinite(eps_k).all())
+    print(f"sdxl-unet: eps {tuple(eps_k.shape)} rel max|d|={e_err:.3e}, "
+          f"self_probs rel max|d| {p_err:.3e} (worst of {len(self_layers)} "
+          f"layers), their sum {s_err:.3e} (tol {UNET_RTOL}), finite={fin}, "
+          f"launches {launched}", flush=True)
+    if not fin or max(e_err, p_err, s_err) > UNET_RTOL:
+        raise AssertionError("the SDXL UNet through the kernels disagrees "
+                             "with the plain attention")
+
+
+def _sdxl_counts(calls: int) -> dict:
+    """Launches of a CLI run at 1024^2 with ``calls`` UNet calls a pass and
+    the plain pass capturing from step 1: every self-attention a forward
+    takes K1 at head dim 64, but the 32^2 ones of a capture step, which
+    take the capture (K3)."""
+    cap = calls - 1
+    per = SDXL_SELF_64 + SDXL_SELF_32
+    return {"full": 2 * calls * per - cap * SDXL_SELF_32,
+            "avgp": cap * SDXL_SELF_32, "full_t": 0, "stream": 0,
+            "conv3x3": 0}
+
+
+def _sdxl_shape_launches(name: str, shape: tuple, calls: int) -> int:
+    """Launches of a kernel at one shape in ``sdxl_phase``'s run: the
+    plain pass at batch 2 (the 32^2 layers only on step 0, the capture
+    taking them after), the rich pass at R+2."""
+    b, _, s, _ = shape
+    if name.startswith("K3"):
+        return (calls - 1) * SDXL_SELF_32 if b == 2 else 0
+    if s == 4096:
+        return calls * SDXL_SELF_64 if b in (2, REGIONS + 2) else 0
+    if b == 2:
+        return SDXL_SELF_32
+    return calls * SDXL_SELF_32 if b == REGIONS + 2 else 0
+
+
+def sdxl_phase(xl, out_dir: str, tag: str = "sdxl", extra=()) -> tuple:
+    """The port's CLI flow with ``--model SDXL`` at 1024^2 under Euler
+    (its default), 4 steps, the plain pass capturing from step 1. Asserts
+    the exact launches (K1 and K3 at head dim 64 only, no K2 or K4), the
+    UNet batches (2 in the plain pass, R+2 in the rich one), finite
+    non-constant images that carry the watermark; returns (launches, the
+    rich image, seconds, peak device bytes)."""
+    import numpy as np
+    import torch
+
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.utils.watermark import (
+        WATERMARK_BITS, decode_watermark)
+
+    calls = xl.scheduler.plan(STEPS_SHORT).num_steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (launches, seconds, plain, rich, share), seen = _batches(
+        xl, lambda: sample_phase(tag, xl, out_dir, SDXL_SIZE, STEPS_SHORT,
+                                 ["--model", "SDXL", *extra], agg_start=1))
+    peak = torch.cuda.max_memory_allocated()
+    by_dim = dict(A.LAUNCHES_BY_DIM)
+    want = _sdxl_counts(calls)
+    _expect(tag, launches, want)
+    if by_dim != {("full", 64): want["full"], ("avgp", 64): want["avgp"]}:
+        raise AssertionError(f"{tag}: launches by head dim {by_dim}")
+    if seen != [2] * calls + [REGIONS + 2] * calls:
+        raise AssertionError(f"{tag}: UNet batches {seen}, expected {calls} "
+                             f"of 2 then {calls} of R+2 = {REGIONS + 2}")
+    marks = [decode_watermark(img[0]) for img in (plain, rich)]
+    print(f"{tag}: {calls} UNet calls a pass (Euler), K1 launches at head "
+          f"dim 64 {want['full']}, K3 {want['avgp']} ({SDXL_SELF_32} on each "
+          f"of {calls - 1} capture steps), no K2 or K4; rich batch R+2 = "
+          f"{REGIONS + 2}; watermark bits recovered: "
+          f"{[m[0] == WATERMARK_BITS for m in marks]} (vote margins "
+          f"{[round(m[1], 3) for m in marks]}); peak device memory "
+          f"{peak} bytes ({peak / 2**30:.2f} GiB) on {_smi()}", flush=True)
+    if marks[1][0] != WATERMARK_BITS:
+        raise AssertionError(f"{tag}: the watermark is not in the image")
+    if not np.isfinite(rich.astype(np.float64)).all():
+        raise AssertionError(f"{tag}: the image is not finite")
+    return launches, rich, seconds, peak
+
+
+def sdxl_refpre_phase(xl, out_dir: str, no_inject_img) -> None:
+    """The ``sdxl:`` request with ``--inject_selfattn 0.3
+    --inject_background 0.3``: the plain pass keeps the refer cache and the
+    rich pass runs R+2 rows (a fallback to the in-batch flow's R+4 fails
+    the batch check in ``sdxl_phase``); the slot's bytes against the JAX
+    package's ~0.42 GB a slot at 1024^2 (region_sdxl.py:394-396)."""
+    _, rich, _, _ = sdxl_phase(
+        xl, out_dir, "sdxl-refpre",
+        ["--inject_selfattn", "0.3", "--inject_background", "0.3"])
+    cache = xl.ref_cache
+    if cache is None:
+        raise AssertionError("sdxl-refpre: the plain pass kept no cache")
+    slot = xl._ref_qk_bytes_per_slot((128, 128))
+    tensors = [cache["traj"], *cache["resnet"].values(),
+               *(t for qk in cache["qk"].values() for t in qk)]
+    total = sum(t.numel() * t.element_size() for t in tensors)
+    moved = _image_diff(rich, no_inject_img)
+    print(f"sdxl-refpre: refer cache {len(cache['steps'])} slot(s) (steps "
+          f"{list(cache['steps'])}), {slot} bytes a slot ({slot / 1e9:.3f} "
+          f"GB; the JAX package's comment: ~0.42 GB), {total} bytes with the "
+          f"trajectory; {len(cache['qk'])} self-attention layers; mean "
+          f"|image difference| against the run without injection "
+          f"{moved:.4f} of 255", flush=True)
+    if moved == 0.0:
+        raise AssertionError("sdxl-refpre: the injection did not change the "
+                             "image")
+
+
+def sdxl_breakdown_phase(xl) -> None:
+    """Per-call times at 1024^2 (CUDA events): the UNet at B=2 and R+2,
+    one colour-guided step exact (fp32 decode and its gradient, TF32 off)
+    with its peak device memory, and pooled by 2, the final decode; then
+    one B=2 forward under ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    with torch.no_grad():
+        for b in (2, REGIONS + 2):
+            x, emb, pooled, tid = _xl_inputs(xl, b, 2)
+            out[f"unet_b{b}_ms"] = _time_ms(
+                lambda: xl._fwd(x, 500, emb, pooled, tid), 3)
+        lat = x[:1]
+        out["decode_ms"] = _time_ms(lambda: xl.decode_latents(lat), 2)
+    noise = torch.randn_like(lat)
+    fmt = {"color_obj_atten": [(np.random.default_rng(2).random(
+               (SDXL_SIZE, SDXL_SIZE)) > 0.5).astype(np.float32)],
+           "target_RGB": [[1.0, 0.0, 0.0]],
+           "color_obj_atten_all": np.ones((128, 128), np.float32)}
+    for tag, ds in (("", 1), ("_gds2", 2)):
+        color = xl._color_inputs(fmt, SDXL_SIZE, SDXL_SIZE, 128, 128, ds,
+                                 False, 0.5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out[f"guided_step{tag}_ms"] = _time_ms(
+            lambda: xl._guided(lat, noise, 0.5, color), 2)
+        out[f"guided_step{tag}_peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"sdxl-breakdown: {json.dumps(out)} on {_smi()}", flush=True)
+    x, emb, pooled, tid = _xl_inputs(xl, 2, 3)
+    with torch.no_grad():
+        xl._fwd(x, 500, emb, pooled, tid)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            xl._fwd(x, 500, emb, pooled, tid)
+            torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for s0, e0 in spans:
+        busy_us += max(0.0, e0 - max(s0, end))
+        end = max(end, e0)
+    wall = out["unet_b2_ms"]
+    idle = f"{1 - busy_us / 1e3 / wall:.3f}" if spans else "not measured"
+    print(f"profile: sdxl unet B=2: {len(spans)} device kernels, busy "
+          f"{busy_us / 1e3:.3f} ms of {wall:.3f} ms un-profiled, idle share "
+          f"{idle}", flush=True)
+
+
 def main(kernels_only: bool = False) -> int:
     import torch
 
@@ -938,36 +1260,82 @@ def main(kernels_only: bool = False) -> int:
 
     # injection: the rich batch grows from R+2 to R+4 rows, the counts per
     # call stay, and the image must differ from the run without injection
+    # the injection paths take fixed masks whose background band holds a
+    # third of the latent, so that background injection reaches the image
     calls = pipe.scheduler.plan(STEPS_SHORT).num_steps
     _, _, plain_off, rich_off, _ = sample_phase(
         "inject-off", pipe, os.path.join(out, "inject_off"), 512,
         STEPS_SHORT, agg_start=1)
-    (launches, _, _, rich_on, share), seen_batch = _batches(
-        pipe, lambda: sample_phase(
-            "inject", pipe, os.path.join(out, "inject"), 512, STEPS_SHORT,
-            ["--inject_selfattn", "0.3", "--inject_background", "0.3",
-             "--no_ref_precompute"], agg_start=1))
+    with _fixed_masks(pipe):
+        _, _, _, fixed_off, _ = sample_phase(
+            "inject-off-fixed", pipe, os.path.join(out, "inject_off_fixed"),
+            512, STEPS_SHORT, agg_start=1)
+        _, _, _, rich_nobg, _ = sample_phase(
+            "inject-nobg", pipe, os.path.join(out, "inject_nobg"), 512,
+            STEPS_SHORT, ["--inject_selfattn", "0.3", "--no_ref_precompute"],
+            agg_start=1)
+        (launches, _, _, rich_on, share), seen_batch = _batches(
+            pipe, lambda: sample_phase(
+                "inject", pipe, os.path.join(out, "inject"), 512,
+                STEPS_SHORT,
+                ["--inject_selfattn", "0.3", "--inject_background", "0.3",
+                 "--no_ref_precompute"], agg_start=1))
+        bg_share = float(pipe.masks[-1].sum()
+                         / sum(m.sum() for m in pipe.masks))
     _expect("inject", launches, {"full": 2 * calls * 5, "avgp": 5,
                                  "full_t": 2 * calls * 5 - 5})
     if seen_batch != [2] * calls + [REGIONS + 4] * calls:
         raise AssertionError(f"inject: UNet batches {seen_batch}, expected "
                              f"{calls} of 2 then {calls} of R+4 = "
                              f"{REGIONS + 4}")
-    moved = _image_diff(rich_on, rich_off)
-    print(f"inject: rich batch R+4 = {REGIONS + 4} in {calls} calls; mean "
-          f"|image "
-          f"difference| against the run without injection {moved:.3f} of "
-          "255", flush=True)
+    moved = _image_diff(rich_on, fixed_off)
+    bg_moved = _background_diff(rich_on, rich_nobg, REGIONS + 1)
+    print(f"inject: rich batch R+4 = {REGIONS + 4} in {calls} calls; fixed "
+          f"masks, background share {bg_share:.3f}; mean |image difference| "
+          f"against the run without injection {moved:.3f} of 255, in the "
+          f"background band against the run without background injection "
+          f"{bg_moved:.3f}", flush=True)
     if moved == 0.0 or share == 0.0:
         # the injected rows are the span rows: with empty span regions they
         # would not reach the image
         raise AssertionError("injection did not change the image")
+    if bg_share == 0.0 or bg_moved == 0.0:
+        raise AssertionError("background injection did not change the "
+                             "background")
 
-    refpre_phase(pipe, os.path.join(out, "refpre"), rich_on, rich_off)
+    refpre_phase(pipe, os.path.join(out, "refpre"), rich_on, fixed_off,
+                 rich_nobg)
     scheduler_phases(pipe, os.path.join(out, "sched"), (plain_off, rich_off))
     turbo_phase(pipe, os.path.join(out, "turbo"), rich_off)
 
     profile_phase(pipe, breakdown_phase(pipe))
+
+    # SDXL at 1024^2: the SD pipeline gives its memory back first
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    from rich_text_to_image_tpu_torch.pipelines.region_sdxl import (
+        RegionDiffusionXL)
+
+    t0 = time.time()
+    xl = RegionDiffusionXL.random_init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for m in (xl.unet, xl.vae, xl.text_encoder,
+                                       xl.text_encoder_2)
+                   for p in m.parameters())
+    print(f"init: full-width SDXL pipeline, {n_params} parameters drawn on "
+          f"the card, {time.time() - t0:.1f} s", flush=True)
+    sdxl_unet_phase(xl)
+    launches, rich_xl, _, _ = sdxl_phase(xl, os.path.join(out, "sdxl"))
+    rows["K1_attn_fwd_64x64"]["sdxl_launches"] = launches["full"]
+    rows["K3_attn_avgp_32x32"]["sdxl_launches"] = launches["avgp"]
+    calls = xl.scheduler.plan(STEPS_SHORT).num_steps
+    for name in ("K1_attn_fwd_64x64", "K3_attn_avgp_32x32"):
+        for entry in rows[name].get("sdxl_d64", []):
+            entry["launches"] = _sdxl_shape_launches(
+                name, tuple(entry["shape"]), calls)
+    sdxl_refpre_phase(xl, os.path.join(out, "sdxl_refpre"), rich_xl)
+    sdxl_breakdown_phase(xl)
 
     print(_smi(), flush=True)
     if any(r["launches"] in (None, 0) for r in rows.values()):

@@ -1,7 +1,9 @@
 """CLI sampler of the port — the flags and flow of the JAX package's
-``cli/sample.py`` (the reference's sample.py), for the SD-1.5 model:
+``cli/sample.py`` (the reference's sample.py), for SD-1.5 and SDXL:
 
     python -m rich_text_to_image_tpu_torch.cli.sample --random_weights
+    python -m rich_text_to_image_tpu_torch.cli.sample --model SDXL \
+        --random_weights
 
 Plain pass with attention capture, token maps, then the rich pass with
 region compositing, font-size reweighting, colour guidance and, with
@@ -9,15 +11,18 @@ region compositing, font-size reweighting, colour guidance and, with
 background injection: by default through the refer-precompute flow (the
 plain pass keeps the reference trajectory and the injection steps' (Q, K)
 and resnet feature, and the rich pass reads them), with
-``--no_ref_precompute`` through the in-batch flow. ``--scheduler`` takes
-pndm (the default), ddim or dpm; the turbo knobs ``--encoder_reuse``,
-``--encoder_schedule``, ``--guidance_downsample`` and ``--bf16_guidance``
-are the JAX CLI's. ``--height`` / ``--width`` take any multiple of 64
-(768x768, 512x768, ...). Images are written as PNG. ``--bf16_vae`` is
-accepted and, as in the JAX CLI's SD branch, not read. Flags of the JAX
-CLI that this port does not cover yet exit with a message naming them:
-``--model SDXL|AnimeXL``, ``--mesh``, ``--save_attn``, and
-``--scheduler euler``, whose rich pass fails in the JAX package.
+``--no_ref_precompute`` through the in-batch flow. ``--model SDXL`` (and
+``AnimeXL``, the same architecture) samples at 1024x1024 under Euler by
+default, SD at 512x512 under PNDM; ``--scheduler`` takes pndm, ddim, dpm or
+euler; the turbo knobs ``--encoder_reuse``, ``--encoder_schedule``,
+``--guidance_downsample`` and ``--bf16_guidance`` are the JAX CLI's.
+``--height`` / ``--width`` take any multiple of 64 (768x768, 512x768, ...).
+Images are written as PNG, and every run writes the segmentation and
+token-map figures beside them; ``--save_attn`` also writes the aggregated
+attention maps under ``maps/``. ``--bf16_vae`` decodes SDXL's images in
+bfloat16 (the SD branch does not read it, as in the JAX CLI). The CLI
+refuses ``--mesh`` (not ported yet) and ``--model SD --scheduler euler``,
+whose rich pass fails in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ DEFAULT_RICH_TEXT = (
 
 def make_scheduler(name):
     """The scheduler that ``--scheduler`` names (None: the pipeline's
-    default, PNDM)."""
+    default, PNDM for SD and Euler for SDXL)."""
     if name is None:
         return None
     from ..schedulers import (DDIMScheduler, DPMSolverMultistepScheduler,
@@ -50,14 +55,25 @@ def make_scheduler(name):
 
 
 def build_model(args):
-    from ..pipelines.region_sd import RegionDiffusion
+    """The pipeline of ``--model``: RegionDiffusion for SD,
+    RegionDiffusionXL for SDXL and AnimeXL (its VAE decode in bfloat16 with
+    ``--bf16_vae``), on ``--device``."""
+    import torch
 
     kw = dict(device=args.device, scheduler=make_scheduler(args.scheduler))
+    if args.model == "SD":
+        from ..pipelines.region_sd import RegionDiffusion as cls
+        what = "SD-1.5"
+    else:
+        from ..pipelines.region_sdxl import RegionDiffusionXL as cls
+        what = "SDXL"
+        if args.bf16_vae:
+            kw["vae_dtype"] = torch.bfloat16
     if args.checkpoint_dir:
-        return RegionDiffusion.from_pretrained(args.checkpoint_dir, **kw)
+        return cls.from_pretrained(args.checkpoint_dir, **kw)
     if args.random_weights:
-        return RegionDiffusion.random_init(seed=0, **kw)
-    raise SystemExit("no weights: pass --checkpoint_dir <local SD-1.5 "
+        return cls.random_init(seed=0, **kw)
+    raise SystemExit(f"no weights: pass --checkpoint_dir <local {what} "
                      "diffusers directory> or --random_weights")
 
 
@@ -120,10 +136,14 @@ def run_sample(model, args, param, save=True):
         write_png(os.path.join(run_dir, f"seed{seed}_plain.png"), plain_img[0])
     print("time lapses to get attention maps: %.4f" % seconds["plain_pass"])
 
-    # ---- token maps (colour spans, then region spans — sample.py:77-92)
+    # ---- token maps (colour spans, then region spans — sample.py:77-92);
+    # like the reference, every call writes its segmentation and token-map
+    # figures into run_dir (attention_utils.py:266-270, 334-335)
     begin = time.time()
     seg_kw = dict(segment_threshold=args.segment_threshold,
-                  num_segments=args.num_segments)
+                  num_segments=args.num_segments,
+                  save_dir=run_dir if save else None, tokens_vis=base_tokens,
+                  save_attn=args.save_attn)
     color_obj_masks = get_token_maps(agg, color_target_token_ids[:-1],
                                      lat_hw, seed, **seg_kw)
     color_obj_atten_all = np.zeros_like(color_obj_masks[-1])
@@ -164,24 +184,18 @@ def run_sample(model, args, param, save=True):
 
 def check_args(args) -> None:
     """Exit with a message on flags this port does not cover yet."""
-    if args.model != "SD":
-        raise SystemExit(f"--model {args.model}: only SD (SD-1.5) is ported "
-                         "to PyTorch yet (ROADMAP.md, Queue 1)")
-    if args.scheduler == "euler":
+    if args.model == "SD" and args.scheduler == "euler":
         # Euler's timesteps are floats; the JAX package's rich pass indexes
         # alphas_cumprod with them and raises
         raise SystemExit(
             "--scheduler euler: the SD rich pass fails under Euler in the "
             "JAX package (pipelines/region_sd.py:772 indexes alphas_cumprod "
             "with its float timesteps: IndexError), and the port refuses it "
-            "likewise (ROADMAP.md, Queue 3); use pndm, ddim or dpm")
-    on = [f"--{k}" for k, off in (("mesh", None), ("save_attn", False))
-          if getattr(args, k) != off]
-    if on:
-        raise SystemExit(
-            f"{' '.join(on)}: not ported to PyTorch yet (meshes and the "
-            "segmentation/attention figures are later slices; ROADMAP.md, "
-            "Queue 1)")
+            "likewise (ROADMAP.md, Queue 3); use pndm, ddim or dpm (SDXL's "
+            "rich pass runs under Euler)")
+    if args.mesh is not None:
+        raise SystemExit("--mesh: not ported to PyTorch yet (multi-GPU runs "
+                         "are a later slice; ROADMAP.md, Queue 1)")
 
 
 def make_parser():
@@ -205,9 +219,9 @@ def make_parser():
     p.add_argument("--random_weights", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda)")
-    # SDXL's flag in the JAX CLI; its SD branch does not read it
+    # SDXL: the final decode in bfloat16; the SD branch does not read it
     p.add_argument("--bf16_vae", action="store_true")
-    p.add_argument("--save_attn", action="store_true")  # exits unless off
+    p.add_argument("--save_attn", action="store_true")
     p.add_argument("--scheduler", type=str, default=None,
                    choices=["pndm", "ddim", "dpm", "euler"])
     p.add_argument("--bf16_guidance", action="store_true")
@@ -223,10 +237,11 @@ def make_parser():
 def main(argv=None):
     args = make_parser().parse_args(argv)
     check_args(args)
+    default_resolution = 512 if args.model == "SD" else 1024
     param = {
         "text_input": json.loads(args.rich_text_json),
-        "height": args.height or 512,
-        "width": args.width or 512,
+        "height": args.height or default_resolution,
+        "width": args.width or default_resolution,
         "guidance_weight": args.guidance_weight,
         "steps": args.sample_steps,
         "noise_index": args.seed,

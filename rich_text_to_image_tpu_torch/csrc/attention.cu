@@ -27,8 +27,9 @@
 // an online softmax in fp32 (exp2, log2(e) folded into the scale). The three
 // JAX kernels that compute softmax(Q K^T) V are one function, so one kernel,
 // attn_fwd_kernel, templated on the padded head dim (40 -> 48, 80 -> 80, 160
-// for the 1280-channel level at sizes above 512^2), serves them all; the
-// wrapper keeps the JAX dispatch only to count launches per JAX kernel.
+// for the 1280-channel level at sizes above 512^2; SDXL's 64 as it is),
+// serves them all; the wrapper keeps the JAX dispatch only to count
+// launches per JAX kernel.
 //   * both products are wgmma (wgmma.cuh). S = Q K^T reads K from shared
 //     memory, K-major, 16 of the head dim a product, and Q from shared
 //     memory too or, at d <= 48, from registers; O += P V takes P from
@@ -100,6 +101,12 @@ constexpr int ring_stages(int fixed_bytes, int stage_bytes) {
   return ns > 4 ? 4 : ns;
 }
 
+// Whether the ring of attn_fwd_kernel<DP, TK, NWG> holds MIN_STAGES tiles.
+constexpr bool fwd_fits(int dp, int tk, int nwg) {
+  return ring_stages(((dp + 63) / 64) * 64 * nwg * SWZ_ROW,
+                     2 * ((dp + 63) / 64) * tk * SWZ_ROW) >= MIN_STAGES;
+}
+
 // Shapes of attn_fwd_kernel<DP, TK, NWG>: NWG warpgroups of 64 query rows
 // that multiply and one that copies, K/V tiles of TK keys, the padded head
 // dim DP in chunks of 64 columns.
@@ -138,6 +145,7 @@ template <int DP>
 __device__ __forceinline__ void pv_mma(float* o, const uint32_t a[4],
                                        uint64_t dv) {
   if constexpr (DP == 48) wgmma_rs_n48<1>(o, a, dv, 1);
+  else if constexpr (DP == 64) wgmma_rs_n64<1>(o, a, dv, 1);
   else if constexpr (DP == 80) wgmma_rs_n80<1>(o, a, dv, 1);
   else wgmma_rs_n160<1>(o, a, dv, 1);
 }
@@ -603,6 +611,18 @@ cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                : launch_fwd_tile<DP, TK, NWG, false>(                         \
                      q, k, v, o, lse, B, H, sq, skv, d, qs, ks, vs, os,       \
                      scale_log2, stream);
+#ifdef RTT_ALL_TILES
+  // every pair whose ring fits, for scripts/port_tile_sweep.py only (its
+  // own build): some of them make ptxas serialize the products (C75xx)
+  RTT_FWD_TILE(64, 1)
+  RTT_FWD_TILE(64, 2)
+  if constexpr (fwd_fits(DP, 128, 1)) { RTT_FWD_TILE(128, 1) }
+  if constexpr (fwd_fits(DP, 128, 2)) { RTT_FWD_TILE(128, 2) }
+  if constexpr (DP <= 80) {
+    RTT_FWD_TILE(64, 3)
+    if constexpr (fwd_fits(DP, 128, 3)) { RTT_FWD_TILE(128, 3) }
+  }
+#endif
   RTT_FWD_TILE(TK1, 1)
   RTT_FWD_TILE(TK2, 2)
   if constexpr (DP <= 80) {

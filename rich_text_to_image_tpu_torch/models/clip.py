@@ -1,14 +1,18 @@
-"""CLIP text encoder (SD-1.5's ViT-L/14 text tower) in PyTorch.
+"""CLIP text encoders (SD-1.5's ViT-L/14 text tower, SDXL's two) in PyTorch.
 
 Counterpart of ``rich_text_to_image_tpu/models/clip.py``, with the module
 names of the transformers ``CLIPTextModel`` state dict
-(``text_model.encoder.layers.{i}.self_attn.q_proj`` ...). Runs in float32,
-by the precision policy.
+(``text_model.encoder.layers.{i}.self_attn.q_proj`` ...; the projected
+tower's ``text_projection`` beside ``text_model``, as in
+``CLIPTextModelWithProjection``). Runs in float32, by the precision policy.
 
 Output of ``forward``:
   last_hidden_state [B, 77, D] — after the final layer norm,
   penultimate       [B, 77, D] — the input of the last layer,
-  pooled            [B, D]     — the last hidden state at each row's EOS.
+  pooled            [B, D]     — the last hidden state at each row's EOS,
+  projected         [B, P]     — with ``projection_dim`` set (SDXL's second
+                                 tower), ``pooled`` through the bias-free
+                                 ``text_projection``.
 """
 
 from __future__ import annotations
@@ -102,11 +106,11 @@ class CLIPTextTransformer(nn.Module):
 class CLIPTextModel(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
-        if cfg.projection_dim is not None:
-            raise NotImplementedError(
-                "the projected CLIP text tower (SDXL) is not ported yet")
         self.cfg = cfg
         self.text_model = CLIPTextTransformer(cfg)
+        if cfg.projection_dim is not None:
+            self.text_projection = nn.Linear(cfg.hidden_size,
+                                             cfg.projection_dim, bias=False)
 
     def forward(self, input_ids: torch.Tensor,
                 eos_token_id: int | None = None) -> dict:
@@ -131,5 +135,8 @@ class CLIPTextModel(nn.Module):
         else:
             eos_pos = (input_ids == eos_token_id).int().argmax(dim=-1)
         pooled = last[torch.arange(B, device=last.device), eos_pos]
-        return {"last_hidden_state": last, "penultimate": penultimate,
-                "pooled": pooled}
+        out = {"last_hidden_state": last, "penultimate": penultimate,
+               "pooled": pooled}
+        if self.cfg.projection_dim is not None:
+            out["projected"] = self.text_projection(pooled)
+        return out

@@ -1,6 +1,10 @@
-"""UNet2DCondition in PyTorch, the SD-1.5 topology.
+"""UNet2DCondition in PyTorch: the SD-1.5 and SDXL topologies.
 
-Counterpart of ``rich_text_to_image_tpu/models/unet.py``. The forward
+Counterpart of ``rich_text_to_image_tpu/models/unet.py``. SDXL's
+``text_time`` micro-conditioning adds ``add_embedding`` over the pooled
+text row and the sinusoidal embedding of the six time ids
+(``added_cond={"text_embeds", "time_ids"}``) to the time embedding; levels
+of depth 0 (``DownBlock2D``, ``UpBlock2D``) hold no transformer. The forward
 returns ``(eps, aux)``: ``capture`` (:class:`CaptureSpec`) names the layers
 whose head-averaged attention probabilities go into ``aux``, and ``controls``
 (:class:`UNetControls`) carries the font-size token weights and the
@@ -138,6 +142,18 @@ def timestep_embedding(t: torch.Tensor, dim: int, flip_sin_to_cos: bool = True,
     if flip_sin_to_cos:
         emb = torch.cat([emb[..., half:], emb[..., :half]], dim=-1)
     return emb
+
+
+class Timesteps(nn.Module):
+    """The sinusoidal embedding as a module without parameters (diffusers'
+    ``Timesteps``): SDXL's ``add_time_proj`` of the six time ids."""
+
+    def __init__(self, dim: int, flip_sin_to_cos: bool, freq_shift: float):
+        super().__init__()
+        self.dim, self.flip, self.shift = dim, flip_sin_to_cos, freq_shift
+
+    def forward(self, t):
+        return timestep_embedding(t, self.dim, self.flip, self.shift)
 
 
 class TimestepEmbedding(nn.Module):
@@ -519,13 +535,19 @@ class UNet2DCondition(nn.Module):
     ``dtype`` is the compute type (bfloat16 on the card, by the precision
     policy; float32 in the CPU tests): cast the module with ``.to(dtype)``
     after loading weights, as :func:`~..weights.random_init` does.
+
+    ``pooled_dim``: the width of the pooled text row of a text_time UNet,
+    where it is not the config's (``add_embedding`` then takes
+    ``pooled_dim + 6 * addition_time_embed_dim``; the JAX package's Dense
+    layer infers it from its first input).
     """
 
-    def __init__(self, cfg: UNetConfig):
+    def __init__(self, cfg: UNetConfig, pooled_dim: int | None = None):
         super().__init__()
-        if cfg.addition_embed_type is not None:
+        if cfg.addition_embed_type not in (None, "text_time"):
             raise NotImplementedError(
-                "SDXL text_time conditioning is not ported yet (ROADMAP.md)")
+                f"addition_embed_type {cfg.addition_embed_type!r}: only SDXL's "
+                "text_time is ported")
         if cfg.dual_cross_attention:
             raise NotImplementedError(
                 "DualTransformer2D is not ported yet (ROADMAP.md)")
@@ -533,6 +555,12 @@ class UNet2DCondition(nn.Module):
         ch0 = cfg.block_out_channels[0]
         temb = cfg.time_embed_dim
         self.time_embedding = TimestepEmbedding(ch0, temb)
+        if cfg.addition_embed_type == "text_time":
+            self.add_time_proj = Timesteps(cfg.addition_time_embed_dim,
+                                           cfg.flip_sin_to_cos, cfg.freq_shift)
+            self.add_embedding = TimestepEmbedding(
+                cfg.projection_class_embeddings_input_dim if pooled_dim is None
+                else pooled_dim + 6 * cfg.addition_time_embed_dim, temb)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
         heads = cfg.heads_per_level
         depth = cfg.transformer_layers_per_block
@@ -570,7 +598,12 @@ class UNet2DCondition(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.conv_in.weight.dtype
 
-    def embed_time(self, timesteps, batch: int) -> torch.Tensor:
+    def embed_time(self, timesteps, batch: int,
+                   added_cond: dict | None = None) -> torch.Tensor:
+        """The time embedding [B, time_embed_dim]; with SDXL's text_time
+        conditioning plus ``add_embedding`` of [pooled text row, embedded
+        time ids], from ``added_cond = {"text_embeds": [B, P], "time_ids":
+        [B, 6] or [1, 6]}``."""
         dev = self.conv_in.weight.device
         t = torch.as_tensor(timesteps, device=dev)
         if t.dim() == 0:
@@ -578,7 +611,18 @@ class UNet2DCondition(nn.Module):
         cfg = self.cfg
         emb = timestep_embedding(t, cfg.block_out_channels[0],
                                  cfg.flip_sin_to_cos, cfg.freq_shift)
-        return self.time_embedding(emb.to(self.dtype))
+        emb = self.time_embedding(emb.to(self.dtype))
+        if cfg.addition_embed_type == "text_time":
+            if added_cond is None:
+                raise ValueError("a text_time UNet needs added_cond = "
+                                 "{'text_embeds', 'time_ids'}")
+            ids = torch.as_tensor(added_cond["time_ids"], device=dev)
+            te = self.add_time_proj(
+                ids.expand(batch, ids.shape[-1]).reshape(-1)).reshape(batch, -1)
+            pooled = torch.as_tensor(added_cond["text_embeds"], device=dev)
+            emb = emb + self.add_embedding(
+                torch.cat([pooled.to(self.dtype), te.to(self.dtype)], dim=-1))
+        return emb
 
     def encode(self, sample, emb, encoder_hidden_states,
                controls: UNetControls | None = None,
@@ -608,10 +652,11 @@ class UNet2DCondition(nn.Module):
 
     def forward(self, sample, timesteps, encoder_hidden_states,
                 controls: UNetControls | None = None,
-                capture: CaptureSpec = EMPTY_CAPTURE):
+                capture: CaptureSpec = EMPTY_CAPTURE,
+                added_cond: dict | None = None):
         if controls is not None:
             controls.check_supported()
         capture.check_supported()
-        emb = self.embed_time(timesteps, sample.shape[0])
+        emb = self.embed_time(timesteps, sample.shape[0], added_cond)
         enc = self.encode(sample, emb, encoder_hidden_states, controls, capture)
         return self.decode(enc, emb, encoder_hidden_states, controls, capture)

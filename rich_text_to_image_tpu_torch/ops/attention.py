@@ -46,11 +46,20 @@ _LOG2E = 1.4426950408889634
 # one per ``flash_attention_avg_probs`` call, where its head-average kernel
 # launches (its forward launch is part of it and counts under no bucket).
 LAUNCHES = {"full": 0, "full_t": 0, "avgp": 0, "stream": 0}
+# the same launches by (bucket, padded head dim): which instantiation ran
+LAUNCHES_BY_DIM: dict = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_DIM.clear()
+
+
+def _count(bucket: str, d: int) -> None:
+    LAUNCHES[bucket] += 1
+    key = (bucket, _padded(d))
+    LAUNCHES_BY_DIM[key] = LAUNCHES_BY_DIM.get(key, 0) + 1
 
 
 _PLAIN = False
@@ -224,7 +233,7 @@ _SMS = 132  # streaming multiprocessors of an H100
 
 def _padded(d: int) -> int:
     # the head dim the kernels are instantiated for (RTT_DISPATCH)
-    return 48 if d <= 48 else 80 if d <= 80 else 160
+    return 48 if d <= 48 else 64 if d <= 64 else 80 if d <= 80 else 160
 
 
 # The tiles ``csrc/attention.cu launch_fwd`` builds, by padded head dim:
@@ -232,6 +241,7 @@ def _padded(d: int) -> int:
 # K/V tile}, the keys being what measured fastest for that row count. Three
 # warpgroups are not built above head dim 80 (registers).
 _FWD_TILES = {48: {64: 64, 128: 128, 192: 64},
+              64: {64: 64, 128: 64, 192: 64},
               80: {64: 128, 128: 64, 192: 64},
               160: {64: 64, 128: 64}}
 
@@ -311,7 +321,7 @@ def flash_attention(q, k, v, scale: float | None = None,
         return flash_attention_plain(q, k, v, scale)
     max_keys = _stream_tile(block_k) if bucket == "stream" else 128
     out = _launch_fwd("flash_attention", q, k, v, scale, None, max_keys)
-    LAUNCHES[bucket] += 1
+    _count(bucket, d)
     return out
 
 
@@ -404,7 +414,7 @@ def avg_probs_from_lse(q, k, lse, scale: float | None = None):
         _pavg_tile(b, sq, skv, d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if(err, "avg_probs_from_lse")
-    LAUNCHES["avgp"] += 1
+    _count("avgp", d)
     return pavg
 
 

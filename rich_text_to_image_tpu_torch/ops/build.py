@@ -26,7 +26,7 @@ HEADERS = ("common.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIB = None
+_LIBS: dict = {}  # extra flags -> loaded entry points
 build_seconds = None  # wall time of this process's build, None if cached
 ptxas_log = ""
 
@@ -42,21 +42,22 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(source: str) -> str:
+def _lib_path(source: str, extra: tuple = ()) -> str:
     h = hashlib.sha256()
     for name in (source, *HEADERS):
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + tuple(extra)).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"librtt_{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> dict[str, str]:
-    """Compile every source whose library is not built yet, all at once;
-    returns {source: path of its library}."""
+def build(extra: tuple = ()) -> dict[str, str]:
+    """Compile every source whose library is not built yet, all at once,
+    with the flags ``extra`` added to ``NVCC_FLAGS``; returns {source: path
+    of its library}."""
     global build_seconds, ptxas_log
-    paths = {src: _lib_path(src) for src in SOURCES}
+    paths = {src: _lib_path(src, extra) for src in SOURCES}
     todo = [src for src in SOURCES if not os.path.exists(paths[src])]
     if not todo:
         return paths
@@ -67,7 +68,7 @@ def build() -> dict[str, str]:
     for src in todo:
         tmp = f"{paths[src]}.{os.getpid()}.tmp"
         procs.append((src, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)],
+            [nvcc, *NVCC_FLAGS, *extra, "-o", tmp, os.path.join(CSRC, src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     logs, failed = [], []
     for src, tmp, proc in procs:  # wait for all, so none is left running
@@ -106,9 +107,11 @@ class _Kernels:
             fn.restype = i32
 
 
-def library() -> _Kernels:
-    """The loaded kernel entry points (built on first call)."""
-    global _LIB
-    if _LIB is None:
-        _LIB = _Kernels(build())
-    return _LIB
+def library(extra: tuple = ()) -> _Kernels:
+    """The loaded kernel entry points (built on first call). ``extra``:
+    nvcc flags of a second build beside the package's own, such as the
+    ``-DRTT_ALL_TILES`` of ``scripts/port_tile_sweep.py``."""
+    extra = tuple(extra)
+    if extra not in _LIBS:
+        _LIBS[extra] = _Kernels(build(extra))
+    return _LIBS[extra]

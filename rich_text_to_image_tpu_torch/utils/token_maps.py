@@ -6,12 +6,15 @@ pass hands over one [N, N] self-attention sum over the N tokens of the
 segmentation level (the 32^2 registry layers at 512^2, at the last step)
 and one cross-attention sum per resolution; the
 spectral clustering runs on the affinity's device, the rest on the host in
-numpy. Figures (the JAX package's ``utils/viz.py``) are not ported yet.
+numpy. With ``save_dir`` each call writes the segmentation and token-map
+figures there (``utils/viz.py``), and with ``save_attn`` also the raw
+aggregated maps, as the JAX package does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -19,6 +22,7 @@ import torch
 
 from ..ops.resize import resize_bicubic
 from ..ops.spectral import spectral_cluster
+from . import viz
 
 SEG_RESOLUTION = 32  # the reference's segmentation grid
 
@@ -63,12 +67,23 @@ def get_token_maps(
     n_init: int = 100,
     return_segments: bool = False,
     clusters: np.ndarray | None = None,
+    save_dir: str | None = None,
+    tokens_vis: Sequence[str] | None = None,
+    save_attn: bool = False,
 ):
     """Per-span soft masks [1, h, w] (background last), summing to 1.
 
     The segmentation grid has the aspect of ``latent_hw``. ``clusters``
     ([rows, columns] labels) skips the clustering; the parity tests pass the
     JAX package's labels through it.
+
+    With ``save_dir`` set, writes the segmentation figure and the heat grid
+    of the foreground maps before the resize and of the masks after it
+    there (attention_utils.py:266-270, 334-335); ``save_attn`` also writes
+    the affinity and the layer-averaged cross maps as
+    ``save_dir/maps/selfattn_maps.npy`` and ``crossattn_maps.npy``
+    (attention_utils.py:257-260, 292-295; ``.npy`` where the reference
+    writes ``.pth``).
     """
     affinity = torch.as_tensor(agg.self_sum)
     lat_h, lat_w = latent_hw
@@ -127,6 +142,18 @@ def get_token_maps(
     resized = np.clip(resized, 0.0, 1.0)
     resized = resized / (resized.sum(axis=0, keepdims=True) + 1e-8)
     masks = [resized[i][None] for i in range(resized.shape[0])]
+
+    if save_dir is not None:
+        viz.save_segmentation(clusters, save_dir, num_segments, seed)
+        viz.plot_attention_maps([[m[None] for m in foreground], masks],
+                                obj_tokens, save_dir, seed,
+                                tokens_vis=tokens_vis)
+        if save_attn:
+            maps_dir = os.path.join(save_dir, "maps")
+            os.makedirs(maps_dir, exist_ok=True)
+            np.save(os.path.join(maps_dir, "selfattn_maps.npy"),
+                    affinity.float().cpu().numpy())
+            np.save(os.path.join(maps_dir, "crossattn_maps.npy"), cross)
     if return_segments:
         return masks, clusters
     return masks

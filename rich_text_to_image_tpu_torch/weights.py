@@ -63,6 +63,8 @@ def _text_rule(path: tuple[str, ...]) -> str:
     name = ".".join(path[:-1])
     if name == "token_embedding":
         return "text_model.embeddings.token_embedding.weight"
+    if name == "text_projection":  # beside text_model (WithProjection)
+        return "text_projection.weight"
     name = re.sub(r"layers_(\d+)\.(self_attn|layer_norm)",
                   r"encoder.layers.\1.\2", name)
     name = re.sub(r"layers_(\d+)\.fc(\d)", r"encoder.layers.\1.mlp.fc\2", name)
@@ -175,6 +177,33 @@ def random_init(module: nn.Module, seed: int) -> nn.Module:
                 arr = rng.standard_normal(tuple(p.shape), dtype=np.float32)
                 arr *= np.float32(1.0 / np.sqrt(max(fan_in, 1)))
                 p.copy_(torch.from_numpy(arr))
+    return module
+
+
+@torch.no_grad()
+def random_init_device(module: nn.Module, seed: int) -> nn.Module:
+    """The rule of :func:`random_init` drawn where the parameters lie, from
+    a seeded ``torch.Generator`` of their device, and stored in their dtype:
+    for a model too large to draw on the host (SDXL's ~3.5 billion
+    parameters). Build the module on the meta device and ``to_empty`` it
+    onto the card first. Not :func:`random_init`'s numbers for the seed."""
+    gen = {}
+    norms = (nn.LayerNorm, nn.GroupNorm)
+    for mod in module.modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            if pname == "bias":
+                p.zero_()
+            elif isinstance(mod, norms):
+                p.fill_(1.0)
+            else:
+                if p.device not in gen:
+                    gen[p.device] = torch.Generator(
+                        device=p.device).manual_seed(seed)
+                fan_in = (p.shape[0] if isinstance(mod, nn.Embedding)
+                          else int(np.prod(p.shape[1:])))
+                x = torch.randn(tuple(p.shape), generator=gen[p.device],
+                                device=p.device, dtype=torch.float32)
+                p.copy_(x.mul_(1.0 / np.sqrt(max(fan_in, 1))))
     return module
 
 

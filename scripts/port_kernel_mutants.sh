@@ -24,7 +24,8 @@ pavg_column_guard|attention.cu|s/if (pairs \&\& col + 1 < skv) {/if (pairs) {/
 lse_without_log2l|attention.cu|s/lb\[r0\] = m\[0\] + log2f(l0);/lb[r0] = m[0];/
 conv_columns_wrap|conv.cu|s/ww >= 0 \&\& ww < W;/a_off[i] + shift >= 0 \&\& a_off[i] + shift < M * C;/
 conv_taps_mirrored|conv.cu|s/dx = tap % 3 - 1;/dx = 1 - tap % 3;/
-conv_swizzle|conv.cu|s/swz_offset((t >> 3) + 32 \* i, a_chunk)/swz_offset((t >> 3) + 32 * i, a_chunk ^ 1)/'
+conv_swizzle|conv.cu|s/swz_offset((t >> 3) + 32 \* i, a_chunk)/swz_offset((t >> 3) + 32 * i, a_chunk ^ 1)/
+attn_pv_d64_overwrites|attention.cu|s/wgmma_rs_n64<1>(o, a, dv, 1);/wgmma_rs_n64<1>(o, a, dv, 0);/'
 
 # attn_ragged_mask: attn_fwd_kernel scores the zero-filled keys past a
 #   ragged end instead of masking them (all three attention buckets and the
@@ -40,6 +41,8 @@ conv_swizzle|conv.cu|s/swz_offset((t >> 3) + 32 \* i, a_chunk)/swz_offset((t >> 
 # conv_taps_mirrored: the three taps of each kernel row in reverse order.
 # conv_swizzle: the activation tile's 16-byte chunks land at the swizzled
 #   place of their neighbour, so channels meet the wrong weights.
+# attn_pv_d64_overwrites: at head dim 64 (SDXL) each 16-key P.V product
+#   overwrites the output accumulator instead of adding to it.
 
 want=${*:-$(printf '%s\n' "$mutants" | cut -d'|' -f1)}
 bad=0

@@ -12,7 +12,9 @@ calls the kernel's C entry directly with each tile shape (and, for the
 convolution, each split over K) the source builds, holds the result against
 the plain PyTorch version, and prints the time of each beside the library
 call's (``scaled_dot_product_attention``, ``F.conv2d``; none computes the
-head average). The rules that pick a tile in ``ops/attention._fwd_tile``,
+head average). For ``attn_fwd_kernel`` it builds the sources a second time
+with ``-DRTT_ALL_TILES``, which adds every tile pair whose ring fits to the
+ones the package builds. The rules that pick a tile in ``ops/attention._fwd_tile``,
 ``ops/attention._pavg_tile`` and ``ops/conv._plan`` were fitted to this
 script's output; it prints the rule's choice beside the fastest one.
 Times are CUDA events around 20 launches queued behind a busy card
@@ -36,10 +38,19 @@ ATTN_SHAPES = [(2, 8, 4096, 40), (4, 8, 4096, 40), (6, 8, 4096, 40),
                (1, 8, 1024, 40),
                # the streaming bucket's long rows: 768^2 and 1024^2 samples
                (2, 8, 9216, 40), (4, 8, 9216, 40), (2, 8, 16384, 40),
-               (1, 2, 16384, 40)]
+               (1, 2, 16384, 40),
+               # SDXL at 1024^2: the 64^2 and 32^2 levels, head dim 64, at
+               # the plain pass's batch 2 and the rich passes' R+2, R+4
+               (2, 10, 4096, 64), (4, 10, 4096, 64), (6, 10, 4096, 64),
+               (2, 20, 1024, 64), (4, 20, 1024, 64), (6, 20, 1024, 64),
+               (2, 20, 1000, 64)]
 PAVG_SHAPES = [(2, 8, 1024, 80), (2, 8, 1000, 80), (2, 8, 2304, 80),
                (2, 8, 576, 160), (2, 8, 1024, 160), (4, 8, 1024, 80),
-               (1, 8, 1024, 80), (2, 8, 4096, 40)]
+               (1, 8, 1024, 80), (2, 8, 4096, 40), (2, 20, 1024, 64),
+               (2, 20, 1000, 64)]
+# a second build of the sources with every (query rows, keys) pair of
+# attn_fwd_kernel whose ring fits, beside the package's own
+ALL_TILES = ("-DRTT_ALL_TILES",)
 
 
 def sweep_attention() -> None:
@@ -50,7 +61,7 @@ def sweep_attention() -> None:
     from rich_text_to_image_tpu_torch.ops import attention as A
     from rich_text_to_image_tpu_torch.ops import build
 
-    lib = build.library()
+    lib = build.library(ALL_TILES)
     st = torch.cuda.current_stream().cuda_stream
     for b, h, s, d in ATTN_SHAPES:
         q, k, v = _qkv(b, h, s, d, seed=s + d + b)

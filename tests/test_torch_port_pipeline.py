@@ -161,8 +161,10 @@ def test_cli_flow_runs_on_cpu(pipes, tmp_path, px_h, px_w, extra):
     assert plain_img.dtype == np.uint8
     assert rich_img.std() > 0
     assert set(seconds) == {"plain_pass", "token_maps", "rich_pass"}
+    # the images, and the figures that every token-map call writes
     assert sorted(p.name for p in tmp_path.iterdir()) == [
-        "seed1_plain.png", "seed1_rich.png"]
+        "average_seed1_attn0.png", "average_seed1_attn1.png",
+        "seed1_plain.png", "seed1_rich.png", "segmentation_k3_seed1.png"]
     refpre = "--inject_selfattn" in extra and "--no_ref_precompute" not in extra
     assert (tp.ref_cache is not None) == refpre
 
@@ -206,10 +208,22 @@ def test_cli_accepts_ported_flags(pipes, tmp_path, argv):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--model", "SDXL"], ["--scheduler", "euler"], ["--mesh", "auto"],
-    ["--save_attn"], ["--model", "AnimeXL"],
+    ["--model", "SDXL", "--mesh", "auto"], ["--scheduler", "euler"],
+    ["--mesh", "auto"], ["--save_attn", "--mesh", "2,4"],
+    ["--model", "SD", "--scheduler", "euler", "--bf16_vae"],
 ])
 def test_cli_rejects_unported_flags(argv):
+    """What the CLI still refuses: ``--mesh`` with any model, and Euler
+    under SD, whose rich pass fails in the JAX package."""
     with pytest.raises(SystemExit,
-                       match="region_sd.py:772" if "euler" in argv else None):
+                       match="region_sd.py:772" if "euler" in argv else
+                       "--mesh"):
         t_cli.check_args(t_cli.make_parser().parse_args(argv))
+
+
+@pytest.mark.parametrize("argv", [
+    ["--model", "SDXL"], ["--save_attn"], ["--model", "AnimeXL"],
+    ["--model", "SDXL", "--scheduler", "euler", "--bf16_vae"],
+])
+def test_cli_takes_sdxl_and_save_attn(argv):
+    t_cli.check_args(t_cli.make_parser().parse_args(argv))

@@ -170,7 +170,8 @@ def test_plain_pass_matches_jax(pipes, name):
                                         latents=jnp.asarray(lat0), **kw)
     seen = []
     orig = tp.unet.embed_time
-    tp.unet.embed_time = lambda t, b: seen.append(t) or orig(t, b)
+    tp.unet.embed_time = lambda t, b, *cond: seen.append(t) or orig(t, b,
+                                                                  *cond)
     try:
         t_img, t_agg = tp.produce_attn_maps([PROMPTS[-1]], [""],
                                             latents=lat0, **kw)

@@ -77,7 +77,8 @@ def _waves(b, h, s, block_m):
 @pytest.mark.parametrize("b,h,s,d", ATTN_SHAPES)
 def test_attention_tile_over_the_paths_shapes(b, h, s, d):
     block_m, block_k = A._fwd_tile(b, h, s, d)
-    dp = 48 if d <= 48 else 80 if d <= 80 else 160  # RTT_DISPATCH
+    dp = (48 if d <= 48 else 64 if d <= 64 else 80 if d <= 80
+          else 160)  # RTT_DISPATCH
     assert block_k == _built_keys(dp, block_m)  # a pair that is built
     cost = {m: _waves(b, h, s, m) * c for m, c in A._WAVE_COST.items()
             if _built_keys(dp, m) is not None}
@@ -102,6 +103,23 @@ def test_attention_tile_rule_at_its_edge():
     # [4,8,576,160]: 288 CTAs of 64 rows in 3 waves measured faster than 160
     # of 128 rows in 2
     assert A._fwd_tile(4, 8, 576, 160) == (64, 64)
+
+
+def test_attention_tile_at_the_sdxl_shapes():
+    """SDXL's head dim 64 runs at its own instantiation, whose tiles are
+    64 keys at every row count. What ``scripts/port_tile_sweep.py
+    attention`` measured at the SDXL 1024^2 shapes (PERF.md): the rule's
+    tile within 3% of the fastest at each; 128 rows at [2,10,4096,64]
+    (640 CTAs in 5 waves), 192 at [4,10,4096,64] and at 32^2 with 20
+    heads."""
+    assert A._padded(64) == 64 and A._FWD_TILES[64] == {64: 64, 128: 64,
+                                                        192: 64}
+    assert A._fwd_tile(2, 10, 4096, 64) == (128, 64)
+    assert A._fwd_tile(4, 10, 4096, 64) == (192, 64)
+    assert A._fwd_tile(6, 10, 4096, 64) == (192, 64)
+    assert A._fwd_tile(2, 20, 1024, 64) == (192, 64)
+    assert A._fwd_tile(2, 20, 1000, 64) == (192, 64)
+    assert A._pavg_tile(2, 1024, 1024, 64) == 128
 
 
 def test_attention_tile_at_the_long_rows():

@@ -7,6 +7,7 @@ relative to the output's scale — float32 through a few dozen layers whose
 sums run in another order (XLA's versus ATen's); the max |d| seen is ~3e-6.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -149,5 +150,12 @@ def test_unported_controls_raise(kw):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError):
-        T.UNet2DCondition(C.TINY_XL_UNET)
+    """SDXL's text_time UNet is ported (tests/test_torch_port_sdxl_models.py);
+    DualTransformer2D, and an added embedding other than text_time, are
+    not."""
+    with pytest.raises(NotImplementedError, match="DualTransformer2D"):
+        T.UNet2DCondition(dataclasses.replace(C.TINY_UNET,
+                                              dual_cross_attention=True))
+    with pytest.raises(NotImplementedError, match="text_time"):
+        T.UNet2DCondition(dataclasses.replace(C.TINY_XL_UNET,
+                                              addition_embed_type="text"))
