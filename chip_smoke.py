@@ -843,13 +843,19 @@ def _fixed_masks(pipe):
 def _background_diff(a, b, n_regions: int) -> float:
     """Mean |a - b| over the background band of ``_fixed_masks`` (the last
     of ``n_regions`` vertical bands), in uint8 steps."""
+    return _band_diffs(a, b, n_regions)[0]
+
+
+def _band_diffs(a, b, n_regions: int) -> tuple:
+    """Mean |a - b| over the background band of ``_fixed_masks`` and over
+    the span bands left of it, in uint8 steps."""
     w = a.shape[2]
     x0 = w - w // n_regions
-    return _image_diff(a[:, :, x0:], b[:, :, x0:])
+    return (_image_diff(a[:, :, x0:], b[:, :, x0:]),
+            _image_diff(a[:, :, :x0], b[:, :, :x0]))
 
 
-def refpre_phase(pipe, out_dir: str, in_batch_img, no_inject_img,
-                 no_bg_img) -> None:
+def refpre_phase(pipe, out_dir: str, in_batch_img, no_inject_img) -> None:
     """The injection request of the ``inject:`` phase through the CLI's
     default flow: the plain pass keeps the refer cache, the rich pass runs
     R+2 rows a step and injects from it. Fails if the rich pass fell back
@@ -857,10 +863,14 @@ def refpre_phase(pipe, out_dir: str, in_batch_img, no_inject_img,
     in-batch flow's, if the image is further than ``REFPRE_MAX_DIFF`` from
     the in-batch one (same seed and text), or if it equals the image of the
     run without injection (the same R+2 rows but for the injection), or
-    if its background band equals the run's without background injection
-    (the refer latent composited under the fixed background mask)."""
+    if its background band equals that of ``refpre-nobg``, the same flow
+    with ``--inject_selfattn 0.3`` alone (the refer latent composited
+    under the fixed background mask is all that differs)."""
     calls = pipe.scheduler.plan(STEPS_SHORT).num_steps
     with _fixed_masks(pipe):
+        _, _, _, no_bg_img, _ = sample_phase(
+            "refpre-nobg", pipe, os.path.join(out_dir, "nobg"), 512,
+            STEPS_SHORT, ["--inject_selfattn", "0.3"], agg_start=1)
         (launches, _, _, rich, _), seen = _batches(pipe, lambda: sample_phase(
             "refpre", pipe, out_dir, 512, STEPS_SHORT,
             ["--inject_selfattn", "0.3", "--inject_background", "0.3"],
@@ -880,15 +890,16 @@ def refpre_phase(pipe, out_dir: str, in_batch_img, no_inject_img,
     total = sum(t.numel() * t.element_size() for t in tensors)
     diff = _image_diff(rich, in_batch_img)
     moved = _image_diff(rich, no_inject_img)
-    bg_moved = _background_diff(rich, no_bg_img, REGIONS + 1)
+    bg_moved, span_moved = _band_diffs(rich, no_bg_img, REGIONS + 1)
     print(f"refpre: rich batch R+2 = {REGIONS + 2} in {calls} calls; refer "
           f"cache {len(cache['steps'])} slots (steps {list(cache['steps'])})"
           f", {pipe._ref_qk_bytes_per_slot((64, 64))} bytes a slot, "
           f"{total} bytes in all with the trajectory; mean |image "
           f"difference| against the in-batch flow {diff:.4f} of 255 (bound "
           f"{REFPRE_MAX_DIFF}), against the run without injection "
-          f"{moved:.4f}, in the background band against the run without "
-          f"background injection {bg_moved:.4f}", flush=True)
+          f"{moved:.4f}; against refpre-nobg (the same flow without "
+          f"background injection) in the background band {bg_moved:.4f}, in "
+          f"the span bands {span_moved:.4f}", flush=True)
     if diff > REFPRE_MAX_DIFF:
         raise AssertionError("refpre: the image is too far from the "
                              "in-batch flow's")
@@ -1015,7 +1026,7 @@ def sdxl_unet_phase(xl) -> None:
         A.reset_launches()
         eps_k, aux_k = xl._fwd(x, 500, emb, pooled, tid, capture=spec)
         torch.cuda.synchronize()
-        launched = dict(A.LAUNCHES_BY_DIM)
+        launched = A.launches_by_dim()
         with A.plain_attention():
             eps_p, aux_p = xl._fwd(x, 500, emb, pooled, tid, capture=spec)
         torch.cuda.synchronize()
@@ -1056,9 +1067,9 @@ def _sdxl_counts(calls: int) -> dict:
 
 
 def _sdxl_shape_launches(name: str, shape: tuple, calls: int) -> int:
-    """Launches of a kernel at one shape in ``sdxl_phase``'s run: the
-    plain pass at batch 2 (the 32^2 layers only on step 0, the capture
-    taking them after), the rich pass at R+2."""
+    """Launches of a kernel at one shape that ``sdxl_phase``'s run should
+    count: the plain pass at batch 2 (the 32^2 layers only on step 0, the
+    capture taking them after), the rich pass at R+2."""
     b, _, s, _ = shape
     if name.startswith("K3"):
         return (calls - 1) * SDXL_SELF_32 if b == 2 else 0
@@ -1075,7 +1086,7 @@ def sdxl_phase(xl, out_dir: str, tag: str = "sdxl", extra=()) -> tuple:
     the exact launches (K1 and K3 at head dim 64 only, no K2 or K4), the
     UNet batches (2 in the plain pass, R+2 in the rich one), finite
     non-constant images that carry the watermark; returns (launches, the
-    rich image, seconds, peak device bytes)."""
+    launches by shape, the rich image, seconds, peak device bytes)."""
     import numpy as np
     import torch
 
@@ -1090,7 +1101,8 @@ def sdxl_phase(xl, out_dir: str, tag: str = "sdxl", extra=()) -> tuple:
         xl, lambda: sample_phase(tag, xl, out_dir, SDXL_SIZE, STEPS_SHORT,
                                  ["--model", "SDXL", *extra], agg_start=1))
     peak = torch.cuda.max_memory_allocated()
-    by_dim = dict(A.LAUNCHES_BY_DIM)
+    by_shape = dict(A.LAUNCHES_BY_SHAPE)
+    by_dim = A.launches_by_dim()
     want = _sdxl_counts(calls)
     _expect(tag, launches, want)
     if by_dim != {("full", 64): want["full"], ("avgp", 64): want["avgp"]}:
@@ -1110,7 +1122,7 @@ def sdxl_phase(xl, out_dir: str, tag: str = "sdxl", extra=()) -> tuple:
         raise AssertionError(f"{tag}: the watermark is not in the image")
     if not np.isfinite(rich.astype(np.float64)).all():
         raise AssertionError(f"{tag}: the image is not finite")
-    return launches, rich, seconds, peak
+    return launches, by_shape, rich, seconds, peak
 
 
 def sdxl_refpre_phase(xl, out_dir: str, no_inject_img) -> None:
@@ -1119,7 +1131,7 @@ def sdxl_refpre_phase(xl, out_dir: str, no_inject_img) -> None:
     rich pass runs R+2 rows (a fallback to the in-batch flow's R+4 fails
     the batch check in ``sdxl_phase``); the slot's bytes against the JAX
     package's ~0.42 GB a slot at 1024^2 (region_sdxl.py:394-396)."""
-    _, rich, _, _ = sdxl_phase(
+    _, _, rich, _, _ = sdxl_phase(
         xl, out_dir, "sdxl-refpre",
         ["--inject_selfattn", "0.3", "--inject_background", "0.3"])
     cache = xl.ref_cache
@@ -1303,8 +1315,7 @@ def main(kernels_only: bool = False) -> int:
         raise AssertionError("background injection did not change the "
                              "background")
 
-    refpre_phase(pipe, os.path.join(out, "refpre"), rich_on, fixed_off,
-                 rich_nobg)
+    refpre_phase(pipe, os.path.join(out, "refpre"), rich_on, fixed_off)
     scheduler_phases(pipe, os.path.join(out, "sched"), (plain_off, rich_off))
     turbo_phase(pipe, os.path.join(out, "turbo"), rich_off)
 
@@ -1326,14 +1337,26 @@ def main(kernels_only: bool = False) -> int:
     print(f"init: full-width SDXL pipeline, {n_params} parameters drawn on "
           f"the card, {time.time() - t0:.1f} s", flush=True)
     sdxl_unet_phase(xl)
-    launches, rich_xl, _, _ = sdxl_phase(xl, os.path.join(out, "sdxl"))
+    launches, by_shape, rich_xl, _, _ = sdxl_phase(
+        xl, os.path.join(out, "sdxl"))
     rows["K1_attn_fwd_64x64"]["sdxl_launches"] = launches["full"]
     rows["K3_attn_avgp_32x32"]["sdxl_launches"] = launches["avgp"]
+    # each SDXL shape's launches as the sdxl: run counted them, held
+    # against what its layers and batches give
     calls = xl.scheduler.plan(STEPS_SHORT).num_steps
-    for name in ("K1_attn_fwd_64x64", "K3_attn_avgp_32x32"):
+    for name, bucket in (("K1_attn_fwd_64x64", "full"),
+                         ("K3_attn_avgp_32x32", "avgp")):
         for entry in rows[name].get("sdxl_d64", []):
-            entry["launches"] = _sdxl_shape_launches(
-                name, tuple(entry["shape"]), calls)
+            b, h, s, d = entry["shape"]
+            entry["launches"] = by_shape.get((bucket, b, h, s, s, d), 0)
+            want = _sdxl_shape_launches(name, (b, h, s, d), calls)
+            if entry["launches"] != want:
+                raise AssertionError(
+                    f"sdxl: {name} launched {entry['launches']} times at "
+                    f"{entry['shape']}, expected {want}: {by_shape}")
+    print("sdxl: launches by (bucket, B, H, Sq, Skv, head dim) "
+          + json.dumps({",".join(map(str, k)): n
+                        for k, n in sorted(by_shape.items())}), flush=True)
     sdxl_refpre_phase(xl, os.path.join(out, "sdxl_refpre"), rich_xl)
     sdxl_breakdown_phase(xl)
 

@@ -138,12 +138,14 @@ def run_sample(model, args, param, save=True):
 
     # ---- token maps (colour spans, then region spans — sample.py:77-92);
     # like the reference, every call writes its segmentation and token-map
-    # figures into run_dir (attention_utils.py:266-270, 334-335)
+    # figures into run_dir (attention_utils.py:266-270, 334-335); the time
+    # they take is kept apart from the stage's, as "figures"
     begin = time.time()
+    seconds["figures"] = 0.0
     seg_kw = dict(segment_threshold=args.segment_threshold,
                   num_segments=args.num_segments,
                   save_dir=run_dir if save else None, tokens_vis=base_tokens,
-                  save_attn=args.save_attn)
+                  save_attn=args.save_attn, timings=seconds)
     color_obj_masks = get_token_maps(agg, color_target_token_ids[:-1],
                                      lat_hw, seed, **seg_kw)
     color_obj_atten_all = np.zeros_like(color_obj_masks[-1])
@@ -155,7 +157,7 @@ def run_sample(model, args, param, save=True):
     text_format_dict["color_obj_atten_all"] = color_obj_atten_all
     model.masks = get_token_maps(agg, region_target_token_ids[:-1], lat_hw,
                                  seed, **seg_kw)
-    seconds["token_maps"] = time.time() - begin
+    seconds["token_maps"] = time.time() - begin - seconds["figures"]
 
     # ---- rich pass
     begin = time.time()

@@ -535,14 +535,9 @@ class UNet2DCondition(nn.Module):
     ``dtype`` is the compute type (bfloat16 on the card, by the precision
     policy; float32 in the CPU tests): cast the module with ``.to(dtype)``
     after loading weights, as :func:`~..weights.random_init` does.
-
-    ``pooled_dim``: the width of the pooled text row of a text_time UNet,
-    where it is not the config's (``add_embedding`` then takes
-    ``pooled_dim + 6 * addition_time_embed_dim``; the JAX package's Dense
-    layer infers it from its first input).
     """
 
-    def __init__(self, cfg: UNetConfig, pooled_dim: int | None = None):
+    def __init__(self, cfg: UNetConfig):
         super().__init__()
         if cfg.addition_embed_type not in (None, "text_time"):
             raise NotImplementedError(
@@ -559,8 +554,7 @@ class UNet2DCondition(nn.Module):
             self.add_time_proj = Timesteps(cfg.addition_time_embed_dim,
                                            cfg.flip_sin_to_cos, cfg.freq_shift)
             self.add_embedding = TimestepEmbedding(
-                cfg.projection_class_embeddings_input_dim if pooled_dim is None
-                else pooled_dim + 6 * cfg.addition_time_embed_dim, temb)
+                cfg.projection_class_embeddings_input_dim, temb)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch0, 3, padding=1)
         heads = cfg.heads_per_level
         depth = cfg.transformer_layers_per_block

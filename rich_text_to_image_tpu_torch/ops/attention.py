@@ -46,20 +46,31 @@ _LOG2E = 1.4426950408889634
 # one per ``flash_attention_avg_probs`` call, where its head-average kernel
 # launches (its forward launch is part of it and counts under no bucket).
 LAUNCHES = {"full": 0, "full_t": 0, "avgp": 0, "stream": 0}
-# the same launches by (bucket, padded head dim): which instantiation ran
-LAUNCHES_BY_DIM: dict = {}
+# the same launches by (bucket, B, H, Sq, Skv, padded head dim): which
+# instantiation ran, at which shape
+LAUNCHES_BY_SHAPE: dict = {}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    LAUNCHES_BY_DIM.clear()
+    LAUNCHES_BY_SHAPE.clear()
 
 
-def _count(bucket: str, d: int) -> None:
+def launches_by_dim() -> dict:
+    """``LAUNCHES_BY_SHAPE`` summed over the shapes: {(bucket, padded head
+    dim): launches}."""
+    out = {}
+    for (bucket, *_, d), n in LAUNCHES_BY_SHAPE.items():
+        out[bucket, d] = out.get((bucket, d), 0) + n
+    return out
+
+
+def _count(bucket: str, q, k) -> None:
     LAUNCHES[bucket] += 1
-    key = (bucket, _padded(d))
-    LAUNCHES_BY_DIM[key] = LAUNCHES_BY_DIM.get(key, 0) + 1
+    b, h, sq, d = q.shape
+    key = (bucket, b, h, sq, k.shape[2], _padded(d))
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
 
 
 _PLAIN = False
@@ -321,7 +332,7 @@ def flash_attention(q, k, v, scale: float | None = None,
         return flash_attention_plain(q, k, v, scale)
     max_keys = _stream_tile(block_k) if bucket == "stream" else 128
     out = _launch_fwd("flash_attention", q, k, v, scale, None, max_keys)
-    _count(bucket, d)
+    _count(bucket, q, k)
     return out
 
 
@@ -414,7 +425,7 @@ def avg_probs_from_lse(q, k, lse, scale: float | None = None):
         _pavg_tile(b, sq, skv, d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_if(err, "avg_probs_from_lse")
-    _count("avgp", d)
+    _count("avgp", q, k)
     return pavg
 
 

@@ -68,7 +68,6 @@ class RegionDiffusionXL(RegionDiffusion):
                  tokenizer: CLIPTokenizer, tokenizer_2: CLIPTokenizer,
                  unet_cfg: cfgs.UNetConfig = cfgs.SDXL_UNET,
                  vae_cfg: cfgs.VAEConfig = cfgs.SDXL_VAE,
-                 force_zeros_for_empty_prompt: bool = True,
                  agg_start_step: int = 10, scheduler=None,
                  vae_dtype=torch.float32, device="cuda"):
         super().__init__(
@@ -79,7 +78,6 @@ class RegionDiffusionXL(RegionDiffusion):
         self.text_encoder_2 = (text_encoder_2.to(self.device).eval()
                                .requires_grad_(False))
         self.tokenizer_2 = tokenizer_2
-        self.force_zeros_for_empty_prompt = force_zeros_for_empty_prompt
         # the VAE stays float32 (the colour guidance differentiates through
         # it); with vae_dtype bfloat16 the final decode takes a bf16 copy
         self.vae_dtype = vae_dtype
@@ -106,10 +104,13 @@ class RegionDiffusionXL(RegionDiffusion):
             text_cfg = dataclasses.replace(text_cfg, vocab_size=vocab)
         if vocab > text2_cfg.vocab_size:
             text2_cfg = dataclasses.replace(text2_cfg, vocab_size=vocab)
+        # add_embedding takes [pooled row, six time embeddings]
         pooled = text2_cfg.projection_dim or text2_cfg.hidden_size
+        unet_cfg = dataclasses.replace(
+            unet_cfg, projection_class_embeddings_input_dim=(
+                pooled + 6 * unet_cfg.addition_time_embed_dim))
         dev, f32 = torch.device(device), torch.float32
-        unet = _on_device(lambda: UNet2DCondition(unet_cfg, pooled_dim=pooled),
-                          dev, dtype, seed)
+        unet = _on_device(lambda: UNet2DCondition(unet_cfg), dev, dtype, seed)
         vae = _on_device(lambda: AutoencoderKL(vae_cfg), dev, f32, seed + 1)
         text = _on_device(lambda: CLIPTextModel(text_cfg), dev, f32, seed + 2)
         text2 = _on_device(lambda: CLIPTextModel(text2_cfg), dev, f32,
@@ -163,7 +164,7 @@ class RegionDiffusionXL(RegionDiffusion):
         if isinstance(negative_prompt, (list, tuple)):
             negative_prompt = negative_prompt[0] if negative_prompt else ""
         rows = [self._encode_one(p) for p in prompts]
-        if negative_prompt == "" and self.force_zeros_for_empty_prompt:
+        if negative_prompt == "":  # SDXL's force_zeros_for_empty_prompt
             neg = tuple(torch.zeros_like(t) for t in rows[0])
         else:
             neg = self._encode_one(negative_prompt)

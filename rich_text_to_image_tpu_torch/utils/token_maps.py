@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -70,6 +71,7 @@ def get_token_maps(
     save_dir: str | None = None,
     tokens_vis: Sequence[str] | None = None,
     save_attn: bool = False,
+    timings: dict | None = None,
 ):
     """Per-span soft masks [1, h, w] (background last), summing to 1.
 
@@ -83,7 +85,8 @@ def get_token_maps(
     the affinity and the layer-averaged cross maps as
     ``save_dir/maps/selfattn_maps.npy`` and ``crossattn_maps.npy``
     (attention_utils.py:257-260, 292-295; ``.npy`` where the reference
-    writes ``.pth``).
+    writes ``.pth``). With ``timings``, the seconds spent writing them are
+    added to ``timings["figures"]``.
     """
     affinity = torch.as_tensor(agg.self_sum)
     lat_h, lat_w = latent_hw
@@ -144,6 +147,7 @@ def get_token_maps(
     masks = [resized[i][None] for i in range(resized.shape[0])]
 
     if save_dir is not None:
+        begin = time.time()
         viz.save_segmentation(clusters, save_dir, num_segments, seed)
         viz.plot_attention_maps([[m[None] for m in foreground], masks],
                                 obj_tokens, save_dir, seed,
@@ -154,6 +158,9 @@ def get_token_maps(
             np.save(os.path.join(maps_dir, "selfattn_maps.npy"),
                     affinity.float().cpu().numpy())
             np.save(os.path.join(maps_dir, "crossattn_maps.npy"), cross)
+        if timings is not None:
+            timings["figures"] = (timings.get("figures", 0.0)
+                                  + time.time() - begin)
     if return_segments:
         return masks, clusters
     return masks

@@ -160,7 +160,10 @@ def test_cli_flow_runs_on_cpu(pipes, tmp_path, px_h, px_w, extra):
     assert plain_img.shape == rich_img.shape == (1, px_h, px_w, 3)
     assert plain_img.dtype == np.uint8
     assert rich_img.std() > 0
-    assert set(seconds) == {"plain_pass", "token_maps", "rich_pass"}
+    # the figures' seconds are kept apart from the token-map stage's
+    assert set(seconds) == {"plain_pass", "token_maps", "figures",
+                            "rich_pass"}
+    assert seconds["figures"] > 0 and seconds["token_maps"] > 0
     # the images, and the figures that every token-map call writes
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "average_seed1_attn0.png", "average_seed1_attn1.png",

@@ -10,6 +10,8 @@ parameters (the JAX trees mapped by ``weights.from_flax``). Tolerances:
 mode (as tests/test_torch_port_attention.py holds the SD-1.5 head dims).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +43,14 @@ CROSS = frozenset({"down_blocks.2.attentions.1.transformer_blocks.1.attn2",
                    "mid_block.attentions.0.transformer_blocks.0.attn2"})
 
 
+def _with_pooled(cfg, pooled: int):
+    """``cfg`` whose ``add_embedding`` takes a pooled row ``pooled`` wide
+    (the JAX package's Dense layer infers it from its first input)."""
+    return dataclasses.replace(
+        cfg, projection_class_embeddings_input_dim=(
+            pooled + 6 * cfg.addition_time_embed_dim))
+
+
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -65,7 +75,7 @@ def xl_unet():
         ju, 0, jnp.zeros((1, 16, 16, 4)), jnp.int32(0),
         jnp.zeros((1, 77, XL.cross_attention_dim)),
         {"text_embeds": jnp.zeros((1, POOLED)), "time_ids": jnp.zeros((1, 6))})
-    tu = weights.load_flax(T.UNet2DCondition(XL, pooled_dim=POOLED),
+    tu = weights.load_flax(T.UNet2DCondition(_with_pooled(XL, POOLED)),
                            _np_tree(params), "unet")
     return ju, params, tu
 
@@ -170,7 +180,7 @@ def test_xl_unet_module_tree_matches_jax(which):
                         {"text_embeds": jnp.zeros((1, pooled)),
                          "time_ids": jnp.zeros((1, 6))}))
     with torch.device("meta"):
-        tu = T.UNet2DCondition(cfg, pooled_dim=pooled)
+        tu = T.UNet2DCondition(_with_pooled(cfg, pooled))
     weights.check_coverage(
         weights.map_flax_tree(_shape_tree(shapes), "unet"), tu)
     assert tu.down_blocks[0].attentions is None

@@ -21,6 +21,7 @@ Tolerance: 1e-4 relative to each output's scale (float32 through two
 passes whose sums run in another order); uint8 images within 1 step.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -55,17 +56,20 @@ def xl_port_of(jp, **kw):
     parameters."""
     tree = lambda p: jax.tree.map(np.asarray, p)
     pooled = jp.text_encoder_2.cfg.projection_dim
+    unet_cfg = dataclasses.replace(
+        jp.unet_cfg, projection_class_embeddings_input_dim=(
+            pooled + 6 * jp.unet_cfg.addition_time_embed_dim))
     tok = CLIPTokenizer.byte_level()
     return TX.RegionDiffusionXL(
-        weights.load_flax(UNet2DCondition(jp.unet_cfg, pooled_dim=pooled),
-                          tree(jp.unet_params), "unet"),
+        weights.load_flax(UNet2DCondition(unet_cfg), tree(jp.unet_params),
+                          "unet"),
         weights.load_flax(AutoencoderKL(jp.vae_cfg), tree(jp.vae_params),
                           "vae"),
         weights.load_flax(CLIPTextModel(jp.text_encoder.cfg),
                           tree(jp.text_params), "text"),
         weights.load_flax(CLIPTextModel(jp.text_encoder_2.cfg),
                           tree(jp.text2_params), "text"),
-        tok, tok, jp.unet_cfg, jp.vae_cfg, device="cpu", **kw)
+        tok, tok, unet_cfg, jp.vae_cfg, device="cpu", **kw)
 
 
 @pytest.fixture(scope="module")
