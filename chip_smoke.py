@@ -35,12 +35,22 @@ is no CUDA device or the port's package is not beside it. Phases, in order:
      pass under Euler (whose rich pass the CLI refuses);
  11. turbo: the 512^2 flow with encoder reuse 2, guidance at half size and
      the bfloat16 guidance decode, against the exact run;
- 12. breakdown: the per-call times of what the passes repeat (the UNet at
+ 12. the evaluation paths at 512^2, 4 PNDM steps: ``batch:``
+     (``text_to_images``, 4 prompts, 8 rows a forward, also with encoder
+     reuse), ``colorbench:`` (``evaluation.benchmark_color.run`` with 4
+     colours batched, 14 then 12 rows a forward, against the same colours
+     one at a time), ``stylebench:`` (``benchmark_style.run``, 6 style
+     pairs batched at 24 rows, against one at a time; random CLIP
+     scorer), ``p2p:`` (prompt-to-prompt, 3 and 1 rows a step; refine,
+     then LocalBlend) and ``colorbench-p2p:`` (the colour suite's
+     prompt-to-prompt baseline), each asserting its UNet batches and its
+     launches;
+ 13. breakdown: the per-call times of what the passes repeat (the UNet at
      batch 2 and R+2 = 4, one colour-guided step exact, pooled by 2 and in
      bfloat16, the final decode);
- 13. profile: one UNet forward at batch 2 and 4 under ``torch.profiler``,
+ 14. profile: one UNet forward at batch 2 and 4 under ``torch.profiler``,
      its device kernel count and the device's idle share;
- 14. SDXL: a full-width SDXL pipeline (random weights drawn on the card);
+ 15. SDXL: a full-width SDXL pipeline (random weights drawn on the card);
      one CFG forward at a 128^2 latent through the kernels (head dim 64)
      against the plain attention, with the capture of the 60 32^2 layers
      summed; the CLI flow with ``--model SDXL`` at 1024^2 under Euler
@@ -107,6 +117,19 @@ REFPRE_MAX_DIFF = 4.0
 # token maps give it all to the spans): the footnote span the left third,
 # the coloured span the middle one, the background the right one
 FIXED_MASK_THIRDS = 3
+
+# the evaluation paths' batched images against the same items run one at a
+# time, mean |image difference| in uint8 steps: bf16 products at batches 14
+# and 12 (colour) or 24 (style) against 5 or 4 rows, as REFPRE_MAX_DIFF
+# holds batches R+2 against R+4; the max is printed beside it
+EVAL_MAX_DIFF = 4.0
+EVAL_PROMPTS = ["a cat wearing sunglasses", "a red scooter on a street",
+                "palm trees on a beach", "a bowl of fruit on a table"]
+# the UNet batches the evaluation paths give attn_fwd_kernel: 2N in
+# text_to_images (N = 4), 2+3K then 3K in the colour bench (K = 4 colours;
+# R+4 = 5 when it runs one colour at a time), K(R+2) in the style bench
+# (K = 6 pairs, R = 2), 3 and 1 in prompt-to-prompt
+EVAL_BATCHES = (8, 14, 12, 24, 5, 3, 1)
 
 SDXL_SIZE = 1024  # the SDXL CLI's default, a 128^2 latent
 # the SDXL attn1 layers at 1024^2 (models/config.py SDXL_UNET): 10 at the
@@ -297,6 +320,12 @@ ATTN_CASES = [
     ("K3_attn_avgp_32x32", "avgp", 2, 8, 1024, 160, "avgp", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 20, 1024, 64, "avgp", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 20, 1000, 64, "avgp", {}),
+] + [
+    (name, "fwd", b, 8, s, d, bucket, {})
+    for b in EVAL_BATCHES
+    for name, s, d, bucket in (("K1_attn_fwd_64x64", 4096, 40, "full"),
+                               ("K2_attn_fwd_32x32", 1024, 80, "full_t"))
+] + [
     ("K4_attn_stream_96x96", "fwd", 2, 8, 9216, 40, "stream", {}),
     ("K4_attn_stream_96x96", "fwd", _RICH, 8, 9216, 40, "stream", {}),
     ("K4_attn_stream_96x96", "fwd", 2, 8, 9000, 40, "stream", {}),
@@ -350,7 +379,7 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
 
     from rich_text_to_image_tpu_torch.ops import attention as A
 
-    rows, k4_tiles, sdxl = {}, {}, {}
+    rows, k4_tiles, sdxl, evals = {}, {}, {}, {}
     sm_hz = _max_sm_hz()
     for name, kind, b, h, s, d, bucket, kw in cases:
         q, k, v = _qkv(b, h, s, d, seed=s + d + b)
@@ -410,6 +439,8 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
                  "library_ms": None if avgp else sdpa_ms}
         if d == 64 and not kw and (h, s) in ((10, 4096), (20, 1024)):
             sdxl.setdefault(name, []).append(entry)
+        if b in EVAL_BATCHES and (h, s, d) in ((8, 4096, 40), (8, 1024, 80)):
+            evals.setdefault(name, []).append(entry)
         if (b, h, s, d) == KERNELS[name][2] and not kw:
             rows[name] = {
                 "name": name, "route": "cuda", "source": KERNELS[name][1],
@@ -425,6 +456,8 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
           "ops/attention._fwd_tile: " + json.dumps(k4_tiles), flush=True)
     for name, entries in sdxl.items():
         rows[name]["sdxl_d64"] = entries
+    for name, entries in evals.items():
+        rows[name]["eval_batches"] = entries
     _capture_accumulated(SDXL_SELF_32)
     q, k, v = _qkv(2, 8, 4096, 40, seed=2)
     print("kernel K1 wrapper host us a launch at [2,8,4096,40]: "
@@ -599,6 +632,17 @@ def unet_phase(pipe) -> None:
                              "plain attention")
 
 
+@contextlib.contextmanager
+def _agg_start(pipe, step: int):
+    """While open, the plain pass sums its cross maps from ``step`` on (a
+    4-step run would have none from the default step 10)."""
+    default, pipe.agg_start_step = pipe.agg_start_step, step
+    try:
+        yield
+    finally:
+        pipe.agg_start_step = default
+
+
 def sample_phase(tag: str, pipe, out_dir: str, size: int, steps: int,
                  extra=(), agg_start: int | None = None) -> tuple:
     """The port's CLI flow at size x size; returns (launch counts of the
@@ -622,16 +666,12 @@ def sample_phase(tag: str, pipe, out_dir: str, size: int, steps: int,
     param = {"text_input": json.loads(RICH_TEXT), "height": size,
              "width": size, "guidance_weight": args.guidance_weight,
              "steps": steps, "noise_index": args.seed, "negative_prompt": ""}
-    default_start = pipe.agg_start_step
-    if agg_start is not None:
-        pipe.agg_start_step = agg_start
     A.reset_launches()
     CV.reset_launches()
-    try:
+    with _agg_start(pipe, pipe.agg_start_step if agg_start is None
+                    else agg_start):
         plain_img, rich_img, seconds = run_sample(pipe, args, param,
                                                   save=True)
-    finally:
-        pipe.agg_start_step = default_start
     launches = {**A.LAUNCHES, **CV.LAUNCHES}
     for name, img in (("plain", plain_img), ("rich", rich_img)):
         f = img.astype(np.float64)
@@ -993,6 +1033,301 @@ def turbo_phase(pipe, out_dir: str, exact_img) -> None:
           flush=True)
 
 
+def _count_eval(acc: dict) -> dict:
+    """Adds the attention launches since the last reset to ``acc`` (the
+    evaluation phases' totals); returns this run's by shape."""
+    from rich_text_to_image_tpu_torch.ops import attention as A
+
+    for k in ("full", "full_t", "avgp", "stream"):
+        acc[k] = acc.get(k, 0) + A.LAUNCHES[k]
+    for k, n in A.LAUNCHES_BY_SHAPE.items():
+        acc["by_shape"][k] = acc["by_shape"].get(k, 0) + n
+    return dict(A.LAUNCHES_BY_SHAPE)
+
+
+def _expect_by_shape(tag: str, got: dict, seen: list, captures: int = 0):
+    """The SD-1.5 512^2 launches of the UNet forwards of batches ``seen``:
+    5 K1 at 64^2 and 5 K2 at 32^2 each, but for ``captures`` plain-pass
+    capture steps at batch 2, whose 5 32^2 layers take K3."""
+    want: dict = {}
+    for b in seen:
+        for key in (("full", b, 8, 4096, 4096, 48),
+                    ("full_t", b, 8, 1024, 1024, 80)):
+            want[key] = want.get(key, 0) + 5
+    if captures:
+        want[("full_t", 2, 8, 1024, 1024, 80)] -= 5 * captures
+        want[("avgp", 2, 8, 1024, 1024, 80)] = 5 * captures
+    _expect_shapes(tag, got, want)
+
+
+def _expect_shapes(tag: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{tag}: launches by (bucket, B, H, Sq, Skv, "
+                             f"head dim) {got}, expected {want}")
+
+
+def _check_images(tag: str, imgs, n: int, size: int = 512) -> None:
+    """n finite, non-constant, distinct uint8 images of size^2."""
+    import numpy as np
+
+    f = imgs.astype(np.float64)
+    if imgs.shape != (n, size, size, 3) or not np.isfinite(f).all() or min(
+            f[i].std() for i in range(n)) == 0:
+        raise AssertionError(f"{tag}: images are wrong: {imgs.shape}")
+    for i in range(n):
+        for j in range(i):
+            if _image_diff(imgs[i], imgs[j]) == 0.0:
+                raise AssertionError(f"{tag}: images {j} and {i} are equal")
+
+
+def _runs(seen: list) -> str:
+    """A list of UNet batches, run-length coded: "2 x5, 14 x2, 12 x3"."""
+    out = []
+    for b in seen:
+        if out and out[-1][0] == b:
+            out[-1][1] += 1
+        else:
+            out.append([b, 1])
+    return ", ".join(f"{b} x{n}" for b, n in out)
+
+
+def _timed(fn):
+    """(what ``fn`` returns, its seconds on the host clock, the card
+    drained before and after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def batch_phase(pipe, out_dir: str, acc: dict) -> None:
+    """``text_to_images`` with 4 prompts: one CFG loop of 8 rows, each
+    forward's 5 K1 and 5 K2 launches at B = 8, no capture; then with
+    encoder reuse 2, where the non-key steps skip the two down-block
+    self-attention layers at 64^2 and at 32^2."""
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.pipelines.base import encoder_key_gates
+    from rich_text_to_image_tpu_torch.utils.png import write_png
+
+    n = len(EVAL_PROMPTS)
+    calls = pipe.scheduler.plan(STEPS_SHORT).num_steps
+    os.makedirs(out_dir, exist_ok=True)
+    rates = {}
+    for stride in (1, 2):
+        A.reset_launches()
+        (imgs, seen), secs = _timed(lambda: _batches(
+            pipe, lambda: pipe.text_to_images(
+                EVAL_PROMPTS, height=512, width=512,
+                num_inference_steps=STEPS_SHORT, guidance_scale=8.5, seed=6,
+                encoder_reuse=stride)))
+        got = _count_eval(acc)
+        if stride == 1 and seen != [2 * n] * calls:
+            raise AssertionError(f"batch: UNet batches {seen}")
+        keys = int(encoder_key_gates(calls, stride, "early").sum())
+        per = 5 * keys + 3 * (calls - keys)
+        _expect_shapes(f"batch: encoder reuse {stride}", got, {
+            ("full", 2 * n, 8, 4096, 4096, 48): per,
+            ("full_t", 2 * n, 8, 1024, 1024, 80): per})
+        _check_images("batch", imgs, n)
+        for i, img in enumerate(imgs):
+            write_png(os.path.join(out_dir, f"er{stride}_{i}.png"), img)
+        rates[stride] = n / secs * 60
+        print(f"batch: text_to_images, {n} prompts, 512x512, {calls} UNet "
+              f"calls of B = {2 * n}, encoder reuse {stride} ({keys} key "
+              f"steps): K1 {per} and K2 {per} launches, all at B = {2 * n}, "
+              f"no K3; {secs:.3f} s, {rates[stride]:.2f} images a minute",
+              flush=True)
+
+
+def _eval_run(pipe, mod, argv: list, acc: dict, **kw):
+    """``mod.run`` on ``pipe`` with ``argv`` from plain-pass step 1: (its
+    summary, the UNet batches, launches by shape, seconds, peak device
+    bytes)."""
+    import torch
+
+    from rich_text_to_image_tpu_torch.ops import attention as A
+
+    args = mod.make_parser().parse_args(argv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    with _agg_start(pipe, 1):
+        (summary, seen), secs = _timed(lambda: _batches(
+            pipe, lambda: mod.run(args, model=pipe, **kw)))
+    return (summary, seen, _count_eval(acc), secs,
+            torch.cuda.max_memory_allocated())
+
+
+def _saved_diffs(tag: str, dir_a: str, dir_b: str) -> tuple:
+    """Each PNG of ``dir_a`` against its namesake in ``dir_b``: (mean |diff|
+    of each, max |diff| of each), uint8 steps; fails above EVAL_MAX_DIFF."""
+    import numpy as np
+
+    from rich_text_to_image_tpu_torch.utils.png import read_png
+
+    names = sorted(f for f in os.listdir(dir_a) if f.endswith(".png"))
+    if not names or names != sorted(
+            f for f in os.listdir(dir_b) if f.endswith(".png")):
+        raise AssertionError(f"{tag}: the two runs saved other images")
+    means, maxes = [], []
+    for f in names:
+        a, b = (read_png(os.path.join(d, f)).astype(np.int32)
+                for d in (dir_a, dir_b))
+        means.append(float(np.abs(a - b).mean()))
+        maxes.append(int(np.abs(a - b).max()))
+    if max(means) > EVAL_MAX_DIFF:
+        raise AssertionError(f"{tag}: batched images too far from the "
+                             f"sequential ones: {means}")
+    return means, maxes
+
+
+def colorbench_phase(pipe, out_dir: str, acc: dict) -> None:
+    """The colour suite on 4 colours of its first prompt, batched (one
+    forward of 2+3K = 14 rows a step up to the reference rows' last use,
+    then 3K = 12) and one colour at a time (R+4 = 5 rows a step, the
+    in-batch injection flow); the saved images of the two against each
+    other."""
+    from rich_text_to_image_tpu_torch.evaluation import benchmark_color as BC
+
+    k = 4
+    plan = pipe.scheduler.plan(STEPS_SHORT)
+    S = plan.num_steps
+    inject = [i for i, t in enumerate(plan.timesteps) if t > 0.8 * 1000]
+    last = max(inject[-1] if inject else -1, int(0.3 * S))
+    want = {k: [2] * S + [2 + 3 * k] * (last + 1) + [3 * k] * (S - last - 1),
+            1: [2] * S + [5] * (S * k)}
+    runs = {}
+    for bc in (k, 1):
+        path = os.path.join(out_dir, f"batch_colors_{bc}")
+        summary, seen, got, secs, peak = _eval_run(
+            pipe, BC, ["--steps", str(STEPS_SHORT), "--num_seeds", "1",
+                       "--limit", str(k), "--batch_colors", str(bc),
+                       "--save_img", "--save_path", path], acc)
+        if seen != want[bc]:
+            raise AssertionError(f"colorbench: --batch_colors {bc}: UNet "
+                                 f"batches {seen}, expected {want[bc]}")
+        _expect_by_shape("colorbench", got, seen, captures=1)
+        if summary["ours_min"]["n"] != k:
+            raise AssertionError(f"colorbench: {summary}")
+        runs[bc] = path
+        dist = {key: round(v["mean"], 4) for key, v in summary.items()
+                if key != "config" and v["n"]}
+        print(f"colorbench: --batch_colors {bc}: UNet batches {_runs(seen)}; "
+              f"{secs:.3f} s, {k / secs * 60:.2f} items a minute (plain pass "
+              f"and token maps included); distances {json.dumps(dist)}; "
+              f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)",
+              flush=True)
+    means, maxes = _saved_diffs("colorbench", runs[k], runs[1])
+    print(f"colorbench: batched against one at a time, mean |image "
+          f"difference| {[round(m, 4) for m in means]} (bound "
+          f"{EVAL_MAX_DIFF}), max {maxes} uint8 steps", flush=True)
+
+
+def stylebench_phase(pipe, out_dir: str, acc: dict) -> None:
+    """The style suite on 6 style pairs of its first scene, batched (K(R+2)
+    = 24 rows a step) and one pair at a time (R+2 = 4 rows), random CLIP
+    scorer; the saved images of the two against each other."""
+    from rich_text_to_image_tpu_torch.evaluation import benchmark_style as BS
+
+    k, regions = 6, 2
+    S = pipe.scheduler.plan(STEPS_SHORT).num_steps
+    want = {k: [2] * S + [k * (regions + 2)] * S,
+            1: [2] * S + [regions + 2] * (S * k)}
+    runs = {}
+    for bp in (k, 1):
+        path = os.path.join(out_dir, f"batch_pairs_{bp}")
+        summary, seen, got, secs, peak = _eval_run(
+            pipe, BS, ["--steps", str(STEPS_SHORT), "--num_seeds", "1",
+                       "--limit", str(k), "--batch_pairs", str(bp),
+                       "--save_img", "--save_path", path], acc)
+        if seen != want[bp]:
+            raise AssertionError(f"stylebench: --batch_pairs {bp}: UNet "
+                                 f"batches {seen}, expected {want[bp]}")
+        _expect_by_shape("stylebench", got, seen, captures=1)
+        if (summary["ours"]["n"] != 2 * k
+                or summary["clip_scores_random_weights"] is not True):
+            raise AssertionError(f"stylebench: {summary}")
+        runs[bp] = path
+        print(f"stylebench: --batch_pairs {bp}: UNet batches {_runs(seen)}; "
+              f"{secs:.3f} s, {k / secs * 60:.2f} items a minute (plain "
+              f"pass, token maps, scorer init and scoring included); CLIP "
+              f"score {summary['ours']['mean']:.4f} (random scorer, "
+              f"flagged); peak device memory {peak} bytes", flush=True)
+    means, maxes = _saved_diffs("stylebench", runs[k], runs[1])
+    print(f"stylebench: batched against one at a time, mean |image "
+          f"difference| {[round(m, 4) for m in means]} (bound "
+          f"{EVAL_MAX_DIFF}), max {maxes} uint8 steps", flush=True)
+
+
+def p2p_phase(pipe, out_dir: str, acc: dict) -> None:
+    """Prompt-to-prompt (refine, then with LocalBlend): a forward of 3 rows
+    (capturing (Q, K) and the full cross maps) and one of 1 row (injected)
+    a step; the edited image must differ from the base one. Then LocalBlend
+    with a threshold above 1, whose empty mask pulls the edited latent back
+    to the base one after every step: the two images must be equal (within
+    0.01 mean uint8 steps: the two rows of one decode)."""
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.pipelines.prompt_to_prompt import (
+        PromptToPromptPipeline)
+    from rich_text_to_image_tpu_torch.utils.png import write_png
+
+    S = pipe.scheduler.plan(STEPS_SHORT).num_steps
+    p2p = PromptToPromptPipeline(pipe)
+    os.makedirs(out_dir, exist_ok=True)
+    blend = {"blend_words": ("cat", "cat")}
+    for tag, kw in (("refine", {}), ("blend", blend),
+                    ("blend-empty", dict(blend, blend_threshold=1.5))):
+        A.reset_launches()
+        (imgs, seen), secs = _timed(lambda: _batches(
+            pipe, lambda: p2p.generate(
+                "a cat riding a scooter", "a red cat riding a scooter",
+                num_inference_steps=STEPS_SHORT, guidance_scale=8.5,
+                height=512, width=512, seed=6, **kw)))
+        got = _count_eval(acc)
+        if seen != [3, 1] * S:
+            raise AssertionError(f"p2p: {tag}: UNet batches {seen}")
+        _expect_by_shape(f"p2p {tag}", got, seen)
+        if tag == "blend-empty":
+            if _image_diff(imgs[0], imgs[1]) > 0.01:
+                raise AssertionError("p2p: LocalBlend's empty mask left the "
+                                     "edited image apart from the base one")
+        else:
+            _check_images(f"p2p {tag}", imgs, 2)
+        for name, img in zip(("base", "edited"), imgs):
+            write_png(os.path.join(out_dir, f"{tag}_{name}.png"), img)
+        print(f"p2p: {tag}: UNet batches 3 and 1 in each of {S} steps; K1 "
+              f"and K2 {5 * S} launches each at B = 3 and at B = 1; edited "
+              f"against base mean |image difference| "
+              f"{_image_diff(imgs[0], imgs[1]):.3f} of 255; {secs:.3f} s",
+              flush=True)
+
+
+def colorbench_p2p_phase(pipe, out_dir: str, acc: dict) -> None:
+    """The colour suite with its prompt-to-prompt baseline, one item."""
+    from rich_text_to_image_tpu_torch.evaluation import benchmark_color as BC
+
+    S = pipe.scheduler.plan(STEPS_SHORT).num_steps
+    summary, seen, got, secs, _ = _eval_run(
+        pipe, BC, ["--steps", str(STEPS_SHORT), "--num_seeds", "1",
+                   "--limit", "1", "--with_p2p", "--save_path", out_dir],
+        acc)
+    if seen != [2] * S + [5] * S + [3, 1] * S:
+        raise AssertionError(f"colorbench-p2p: UNet batches {seen}")
+    _expect_by_shape("colorbench-p2p", got, seen, captures=1)
+    if summary["p2p_min"]["n"] != 1:
+        raise AssertionError(f"colorbench-p2p: {summary}")
+    print(f"colorbench-p2p: one item with the prompt-to-prompt baseline, "
+          f"UNet batches {_runs(seen)}; distances ours "
+          f"{summary['ours_min']['mean']:.4f} / "
+          f"{summary['ours_avg']['mean']:.4f}, p2p "
+          f"{summary['p2p_min']['mean']:.4f} / "
+          f"{summary['p2p_avg']['mean']:.4f} (min / avg); {secs:.3f} s",
+          flush=True)
+
+
 def _xl_inputs(xl, b: int, seed: int):
     """A [b,128,128,4] latent batch, b text and pooled rows and the time
     ids of a 1024^2 SDXL forward."""
@@ -1318,6 +1653,27 @@ def main(kernels_only: bool = False) -> int:
     refpre_phase(pipe, os.path.join(out, "refpre"), rich_on, fixed_off)
     scheduler_phases(pipe, os.path.join(out, "sched"), (plain_off, rich_off))
     turbo_phase(pipe, os.path.join(out, "turbo"), rich_off)
+
+    # the evaluation paths: their UNet batches and launches, counted apart
+    acc = {"by_shape": {}}
+    batch_phase(pipe, os.path.join(out, "batch"), acc)
+    colorbench_phase(pipe, os.path.join(out, "colorbench"), acc)
+    stylebench_phase(pipe, os.path.join(out, "stylebench"), acc)
+    p2p_phase(pipe, os.path.join(out, "p2p"), acc)
+    colorbench_p2p_phase(pipe, os.path.join(out, "colorbench_p2p"), acc)
+    for name, bucket, s_len, d in (("K1_attn_fwd_64x64", "full", 4096, 48),
+                                   ("K2_attn_fwd_32x32", "full_t", 1024, 80)):
+        rows[name]["eval_launches"] = acc[bucket]
+        for entry in rows[name]["eval_batches"]:
+            entry["launches"] = acc["by_shape"].get(
+                (bucket, entry["shape"][0], 8, s_len, s_len, d), 0)
+            if not entry["launches"]:
+                raise AssertionError(f"{name}: no evaluation path launched "
+                                     f"it at {entry['shape']}")
+    print("eval: launches by (bucket, B, H, Sq, Skv, head dim) "
+          + json.dumps({",".join(map(str, k)): n
+                        for k, n in sorted(acc["by_shape"].items())}),
+          flush=True)
 
     profile_phase(pipe, breakdown_phase(pipe))
 

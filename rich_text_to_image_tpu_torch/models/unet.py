@@ -55,8 +55,13 @@ class UNetControls:
     go into rows d0:d1 only, else into every row. With ``inject_src`` set,
     rows d0:d1 take row ``inject_src``'s own (Q, K) at every attn1 layer and
     its feature at :data:`INJECT_RESNET_NAME`, inside one forward.
-    The prompt-to-prompt controls (``inject_cross``, ``cross_mapper``,
-    ``cross_mix``) raise ``NotImplementedError`` when given."""
+
+    Prompt-to-prompt editing at the attn2 layers: ``inject_cross`` maps
+    their names to a base pass's probabilities ``[1,H,S,77]``, re-indexed by
+    ``cross_mapper`` (a ``[77]`` column gather, Refine's; or a ``[77,77]``
+    matrix, Replace's) and blended into the layer's own by the per-token
+    weight ``cross_mix`` ``[77]``: after the font-size weights, before the
+    signs, with no renormalization."""
 
     token_weights: Optional[torch.Tensor] = None  # (77,) or (B,77) |font size|
     token_signs: Optional[torch.Tensor] = None
@@ -70,11 +75,6 @@ class UNetControls:
     inject_dst: Optional[tuple] = None
 
     def check_supported(self) -> None:
-        for name in ("inject_cross", "cross_mapper", "cross_mix"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"UNetControls.{name}: prompt-to-prompt editing is not "
-                    "ported yet (ROADMAP.md, Queue 1)")
         if self.inject_src is not None and self.inject_dst is None:
             raise ValueError("UNetControls.inject_src needs inject_dst")
 
@@ -85,20 +85,15 @@ class CaptureSpec:
     probabilities go into ``aux``; ``qk`` puts every attn1 layer's own
     (Q, K) ``[B,H,S,hd]`` under ``aux["self_qk"]`` and ``resnet`` the named
     resnets' pre-residual features ``[B,h,w,C]`` under
-    ``aux["resnet_hidden"]``. ``cross_full`` (the prompt-to-prompt capture)
-    is not ported yet."""
+    ``aux["resnet_hidden"]``; ``cross_full`` (the prompt-to-prompt capture)
+    every attn2 layer's full probabilities ``[B,H,S,77]`` fp32 under
+    ``aux["cross_probs_full"]``."""
 
     self_probs: frozenset = frozenset()
     cross_probs: frozenset = frozenset()
     qk: bool = False
     resnet: frozenset = frozenset()
     cross_full: bool = False
-
-    def check_supported(self) -> None:
-        if self.cross_full:
-            raise NotImplementedError(
-                "CaptureSpec.cross_full: the prompt-to-prompt capture is not "
-                "ported yet (ROADMAP.md, Queue 1)")
 
 
 EMPTY_CAPTURE = CaptureSpec()
@@ -344,13 +339,22 @@ class Attention(nn.Module):
         v = split(self.to_v(ctx))
         name = self.layer_name
         if is_cross:
-            # font-size reweighting: softmax(s + log w) * sign, per row
-            tw = controls.token_weights if controls is not None else None
-            ts = controls.token_signs if controls is not None else None
+            # font-size reweighting: softmax(s + log w) * sign, per row; the
+            # prompt-to-prompt blend between the two
+            tw = ts = blend = None
+            if controls is not None:
+                tw, ts = controls.token_weights, controls.token_signs
+                if (controls.inject_cross is not None
+                        and name in controls.inject_cross):
+                    blend = (controls.inject_cross[name],
+                             controls.cross_mapper, controls.cross_mix)
             o, probs = attn_ops.cross_attention(q, k, v, scale, tw, ts,
-                                                return_probs=True)
+                                                return_probs=True,
+                                                blend=blend)
             if aux is not None and name in capture.cross_probs:
                 aux.setdefault("cross_probs", {})[name] = probs.mean(dim=1)
+            if aux is not None and capture.cross_full:
+                aux.setdefault("cross_probs_full", {})[name] = probs
         else:
             qu, ku = self._injected_qk(q, k, controls)
             if name in capture.self_probs:
@@ -650,7 +654,6 @@ class UNet2DCondition(nn.Module):
                 added_cond: dict | None = None):
         if controls is not None:
             controls.check_supported()
-        capture.check_supported()
         emb = self.embed_time(timesteps, sample.shape[0], added_cond)
         enc = self.encode(sample, emb, encoder_hidden_states, controls, capture)
         return self.decode(enc, emb, encoder_hidden_states, controls, capture)

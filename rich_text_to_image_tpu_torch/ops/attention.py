@@ -445,10 +445,15 @@ def attention_with_probs(q, k, v, scale: float | None = None):
 
 
 def cross_attention(q, k, v, scale: float | None = None, token_weights=None,
-                    token_signs=None, return_probs: bool = False):
+                    token_signs=None, return_probs: bool = False,
+                    blend=None):
     """Text cross-attention (Skv = 77) with optional font-size reweighting:
     probs = softmax(s + log w) · sign, with dense (Skv,) vectors or, one
-    per batch row, (B, Skv)."""
+    per batch row, (B, Skv). ``blend = (base, mapper, mix)`` is the
+    prompt-to-prompt edit, applied before the signs: probs = mix · mapped +
+    (1 − mix) · probs, where ``mapped`` is the base probabilities [1,H,Sq,
+    Skv] re-indexed on the key axis by ``mapper`` (a (Skv,) gather or a
+    (Skv, Skv) matrix) and ``mix`` is (Skv,)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
 
@@ -459,6 +464,15 @@ def cross_attention(q, k, v, scale: float | None = None, token_weights=None,
     if token_weights is not None:
         s = s + torch.log(over_keys(token_weights))
     p = torch.softmax(s, dim=-1)
+    if blend is not None:
+        base, mapper, mix = blend
+        base = base.float()
+        if mapper.dim() == 2:
+            mapped = torch.einsum("bhqw,wn->bhqn", base, mapper.float())
+        else:
+            mapped = base.index_select(-1, mapper.long())
+        mix = over_keys(mix)
+        p = mix * mapped + (1.0 - mix) * p
     if token_signs is not None:
         p = p * over_keys(token_signs)
     out = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(),

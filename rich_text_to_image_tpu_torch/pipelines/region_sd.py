@@ -13,7 +13,11 @@ Counterpart of ``rich_text_to_image_tpu/pipelines/region_sd.py``. Each JAX
     [uncond, spans..., base] UNet forward per step, noise composited under
     the token masks, font-size reweighting on the base row, and colour
     guidance through the gradient of the VAE decode
-    (``torch.autograd.grad``).
+    (``torch.autograd.grad``);
+  * the batched evaluation paths: ``text_to_images`` (N prompts in one
+    CFG loop of 2N rows), ``color_bench_batch`` (K colour items sharing the
+    reference rows: 2+3K rows a step, 3K once the reference is no longer
+    read) and ``style_bench_batch`` (K style items of R+2 rows each).
 
 Self-attention and background injection run the refer-precompute flow when
 the plain pass left a cache that fits the request, else the in-batch flow
@@ -67,6 +71,29 @@ def set_precision_policy() -> None:
     runs in bfloat16 and is not affected."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def draw_latents(shape, seed: int, device) -> torch.Tensor:
+    """Standard-normal float32 latents of ``shape`` from a
+    ``torch.Generator`` of ``device`` seeded with ``seed``: the draw of every
+    path that is given no latent. Not the JAX package's numbers for the
+    seed."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return torch.randn(tuple(shape), generator=gen, device=device)
+
+
+def composite_noise(masks, g: float, eps_uncond, eps_base, eps_spans):
+    """Classifier-free guidance under the region masks
+    (region_diffusion.py:119-128): the unconditional prediction wherever a
+    mask reaches, each span's prediction under its mask and the base
+    prompt's under the last (the background). ``masks`` [R+1, h, w, 1];
+    ``eps_uncond``, ``eps_base`` [K, h, w, 4]; ``eps_spans`` [K, R, h, w,
+    4], one row of K per item."""
+    noise_uncond = eps_uncond * masks.sum(0)
+    noise_text = eps_base * masks[-1]
+    if eps_spans.shape[1]:
+        noise_text = noise_text + (eps_spans * masks[:-1]).sum(1)
+    return noise_uncond + g * (noise_text - noise_uncond)
 
 
 @dataclasses.dataclass
@@ -188,11 +215,11 @@ class RegionDiffusion:
         imgs = self._decode_imgs(latents)
         return (imgs * 255).round().to(torch.uint8).cpu().numpy()
 
-    def _init_latents(self, latents, h: int, w: int, seed: int):
+    def _init_latents(self, latents, h: int, w: int, seed: int,
+                      batch: int = 1):
         if latents is None:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            return torch.randn((1, h, w, self.unet_cfg.in_channels),
-                               generator=gen, device=self.device)
+            latents = draw_latents((batch, h, w, self.unet_cfg.in_channels),
+                                   seed, self.device)
         return torch.as_tensor(latents, dtype=torch.float32,
                                device=self.device)
 
@@ -509,10 +536,7 @@ class RegionDiffusion:
         else:
             tw_rows, ts_rows = weight_rows(R + 2, R + 1)
 
-        masks = torch.from_numpy(np.stack(
-            [np.asarray(m, np.float32).reshape(h, w) for m in self.masks]
-        )).to(dev)[..., None]  # [R+1, h, w, 1]
-        mask_sum = masks.sum(0)
+        masks = self._region_masks(h, w)
         color = None
         if spec.use_guidance:
             color = self._color_inputs(fmt, height, width, h, w,
@@ -582,13 +606,8 @@ class RegionDiffusion:
                     eps_uncond = eps_all[0:1]
                     eps_spans = eps_all[1:1 + R]
                     eps_base = eps_all[R + 1:R + 2]
-                # composite under the masks (region_diffusion.py:119-128)
-                noise_uncond = eps_uncond * mask_sum[None]
-                noise_text = eps_base * masks[-1][None]
-                if R > 0:
-                    noise_text = noise_text + (eps_spans * masks[:-1]).sum(
-                        0, keepdim=True)
-                noise = noise_uncond + g * (noise_text - noise_uncond)
+                noise = composite_noise(masks, g, eps_uncond, eps_base,
+                                        eps_spans[None])
                 if lat_ref is not None:
                     # both trajectories through one scheduler step
                     eps_ref = eps_all[2:3] + g * (eps_all[3:4] - eps_all[2:3])
@@ -608,6 +627,13 @@ class RegionDiffusion:
                 bg = masks[-1][None]
                 lat = src * bg + lat * (1 - bg)
         return lat
+
+    def _region_masks(self, h: int, w: int) -> torch.Tensor:
+        """``self.masks`` (spans, then the background) on the device as
+        [R+1, h, w, 1] float32."""
+        return torch.from_numpy(np.stack(
+            [np.asarray(m, np.float32).reshape(h, w) for m in self.masks]
+        )).to(self.device)[..., None]
 
     def _unet_fwd(self, x, t, emb_text, controls, capture, enc_cache,
                   name: str, key: bool):
@@ -687,3 +713,187 @@ class RegionDiffusion:
             (grad,) = torch.autograd.grad(
                 self._color_loss(l, noise, a, color), l)
         return (lat - grad * color["weight"] * color["all"]).detach()
+
+    # ------------------------------------------------ batched plain txt2img
+    @torch.no_grad()
+    def text_to_images(self, prompts: Sequence[str], negative_prompt: str = "",
+                       height: int = 512, width: int = 512,
+                       num_inference_steps: int = 50,
+                       guidance_scale: float = 7.5, seed: int = 0,
+                       encoder_reuse: int = 1,
+                       encoder_schedule: str = "early") -> np.ndarray:
+        """Throughput mode: N prompts in one CFG loop of 2N rows
+        ([uncond x N, prompts]), no capture; ``encoder_reuse`` as in the
+        rich pass. The N latents are one draw of ``draw_latents``.
+        Returns uint8 images [N, H, W, 3]."""
+        prompts = list(prompts)
+        N = len(prompts)
+        embeds = self.get_text_embeds(prompts, [negative_prompt])
+        embeds = torch.cat([embeds[0:1].expand(N, -1, -1), embeds[1:]])
+        h, w = height // self.vae_scale_factor, width // self.vae_scale_factor
+        plan = self.scheduler.plan(num_inference_steps)
+        lat = self._init_latents(None, h, w, seed, batch=N) * getattr(
+            plan, "init_noise_sigma", 1.0)
+        stride = max(int(encoder_reuse), 1)
+        keys = encoder_key_gates(plan.num_steps, stride, encoder_schedule)
+        enc_cache = {} if stride > 1 else None
+        g = float(guidance_scale)
+        st = self.scheduler.init_state(lat.shape, self.device)
+        for i in range(plan.num_steps):
+            x = self.scheduler.scale_model_input(plan, i,
+                                                 torch.cat([lat, lat]))
+            eps, _ = self._unet_fwd(x, plan.timesteps[i], embeds, None,
+                                    EMPTY_CAPTURE, enc_cache, "batch",
+                                    bool(keys[i]))
+            eps = eps.float()
+            e = eps[:N] + g * (eps[N:] - eps[:N])
+            lat, st = self.scheduler.step(plan, i, st, e, lat)
+        return self.decode_latents(lat)
+
+    # ----------------------------------------------- batched colour bench
+    def color_bench_batch(self, region_prompts: Sequence[str],
+                          base_prompt: str, target_rgbs, region_mask_px,
+                          height: int, width: int, num_inference_steps: int,
+                          guidance_scale: float, seed: int = 0, latents=None,
+                          inject_selfattn: float = 0.2,
+                          inject_background: float = 0.3,
+                          color_guidance_weight: float = 1.0,
+                          guidance_start_step: int = 999,
+                          bf16_guidance: bool = False,
+                          guidance_downsample: int = 1) -> np.ndarray:
+        """K colour-benchmark items in one loop. The reference trajectory
+        never sees the region prompt, so within one (seed, prompt) it is
+        the same for every colour: each step runs one forward of [ref_u,
+        ref_c, uncond x K, base x K, region x K] (2+3K rows) in which the
+        region rows take the ref_c row's (Q, K) and resnet feature in-batch
+        (``UNetControls.inject_src``). Past the reference's last use (the
+        last injection step and the background-injection step) its rows
+        are dropped and ``ref`` and its scheduler state are frozen: one
+        forward of 3K rows. The colour guidance runs per item at batch 1,
+        each item's graph freed before the next. Per item this is the
+        sequential ``prompt_to_img(use_guidance=True, inject_selfattn,
+        inject_background)`` of [region, base].
+
+        ``self.masks`` holds [region mask, background mask], shared by the
+        K items. Returns uint8 images [K, H, W, 3]."""
+        K = len(region_prompts)
+        if len(self.masks) != 2:
+            raise ValueError("the colour bench takes [region, background] "
+                             f"masks, got {len(self.masks)}")
+        dev = self.device
+        h, w = height // self.vae_scale_factor, width // self.vae_scale_factor
+        embeds = self.get_text_embeds(list(region_prompts) + [base_prompt],
+                                      [""])  # [uncond, regions..., base]
+        sched = self.scheduler
+        plan = sched.plan(num_inference_steps)
+        S = plan.num_steps
+        ref = self._init_latents(latents, h, w, seed) * getattr(
+            plan, "init_noise_sigma", 1.0)
+        lat = ref.expand(K, -1, -1, -1).clone()
+        inject_gates = plan.timesteps.astype(np.float64) > (
+            (1 - inject_selfattn) * 1000)
+        bg_step = int(inject_background * S)
+        inject_steps = np.nonzero(inject_gates)[0]
+        last_use = max(int(inject_steps[-1]) if len(inject_steps) else -1,
+                       bg_step if inject_background > 0 else -1)
+        guidance_gates = (plan.timesteps.astype(np.int64)
+                          < guidance_start_step)
+        alpha_raw = sched.alphas_cumprod[plan.timesteps].astype(np.float32)
+        masks = self._region_masks(h, w)  # [region, background]
+        rgbs = np.asarray(target_rgbs, np.float32).reshape(K, 3)
+        color = self._color_inputs(
+            {"color_obj_atten": [region_mask_px],
+             "target_RGB": [rgbs[0]],
+             "color_obj_atten_all": self.masks[0]},
+            height, width, h, w, guidance_downsample, bf16_guidance,
+            color_guidance_weight)
+        uncond_e, base_e = embeds[0:1], embeds[-1:]
+        em_items = torch.cat([uncond_e.expand(K, -1, -1),
+                              base_e.expand(K, -1, -1), embeds[1:-1]])
+        em_ref = torch.cat([uncond_e, base_e, em_items])
+        g = float(guidance_scale)
+        st = sched.init_state(lat.shape, dev)
+        st_ref = sched.init_state(ref.shape, dev)
+        for i in range(S):
+            t = plan.timesteps[i]
+            with torch.no_grad():
+                lat_in = sched.scale_model_input(plan, i, lat)
+                with_ref = i <= last_use
+                if with_ref:
+                    ref_in = sched.scale_model_input(plan, i, ref)
+                    eps, _ = self.unet(
+                        torch.cat([ref_in, ref_in] + [lat_in] * 3), t,
+                        em_ref, UNetControls(
+                            inject_gate=bool(inject_gates[i]), inject_src=1,
+                            inject_dst=(2 + 2 * K, 2 + 3 * K)))
+                    eps = eps.float()
+                    eps_ref = eps[0:1] + g * (eps[1:2] - eps[0:1])
+                    eps = eps[2:]
+                else:
+                    eps, _ = self.unet(torch.cat([lat_in] * 3), t, em_items)
+                    eps = eps.float()
+                eps_uncond, eps_base, eps_reg = eps.split(K)
+                noise = composite_noise(masks, g, eps_uncond, eps_base,
+                                        eps_reg[:, None])
+                lat, st = sched.step(plan, i, st, noise, lat)
+                if with_ref:
+                    # past the last use ref and st_ref stay frozen: they
+                    # are never read again
+                    ref, st_ref = sched.step(plan, i, st_ref, eps_ref, ref)
+            if guidance_gates[i]:
+                lat = torch.cat([
+                    self._guided(lat[k:k + 1], noise[k:k + 1],
+                                 float(alpha_raw[i]),
+                                 dict(color, target_rgb=torch.from_numpy(
+                                     rgbs[k:k + 1]).to(dev)))
+                    for k in range(K)])
+            if inject_background > 0 and i == bg_step:
+                lat = ref * masks[1][None] + lat * (1 - masks[1][None])
+        return self.decode_latents(lat)
+
+    # ------------------------------------------------ batched style bench
+    @torch.no_grad()
+    def style_bench_batch(self, item_prompts: Sequence[Sequence[str]],
+                          height: int, width: int, num_inference_steps: int,
+                          guidance_scale: float, seed: int = 0,
+                          latents=None) -> np.ndarray:
+        """K style-benchmark items in one loop: each item's [uncond,
+        spans..., base] rows (R+2) in one forward of K·(R+2) rows,
+        items-major, under the shared ``self.masks`` and initial latent; no
+        injection, no guidance. Per item this is the sequential
+        ``prompt_to_img``. Returns uint8 images [K, H, W, 3]."""
+        K = len(item_prompts)
+        R = len(self.masks) - 1
+        if any(len(p) != R + 1 for p in item_prompts):
+            raise ValueError(f"each item takes {R + 1} prompts (spans, then "
+                             "the base prompt)")
+        dev = self.device
+        h, w = height // self.vae_scale_factor, width // self.vae_scale_factor
+        embeds = self.get_text_embeds(
+            [p for item in item_prompts for p in item], [""])
+        item_e = embeds[1:].reshape(K, R + 1, *embeds.shape[1:])
+        e_flat = torch.cat([embeds[0][None, None].expand(K, 1, -1, -1),
+                            item_e], dim=1).reshape(K * (R + 2),
+                                                    *embeds.shape[1:])
+        sched = self.scheduler
+        plan = sched.plan(num_inference_steps)
+        lat = (self._init_latents(latents, h, w, seed)
+               * getattr(plan, "init_noise_sigma", 1.0)).expand(
+                   K, -1, -1, -1).clone()
+        masks = self._region_masks(h, w)
+        g = float(guidance_scale)
+        st = sched.init_state(lat.shape, dev)
+        for i in range(plan.num_steps):
+            lat_in = sched.scale_model_input(plan, i, lat)
+            eps, _ = self.unet(lat_in.repeat_interleave(R + 2, dim=0),
+                               plan.timesteps[i], e_flat)
+            eps = eps.float().reshape(K, R + 2, *lat.shape[1:])
+            noise = composite_noise(masks, g, eps[:, 0], eps[:, -1],
+                                    eps[:, 1:1 + R])
+            lat, st = sched.step(plan, i, st, noise, lat)
+        return self.decode_latents(lat)
+
+    def predict_x0(self, x_t, eps_t, t: int):
+        """The x0 prediction (x_t − sqrt(1 − ᾱ_t)·ε) / sqrt(ᾱ_t)."""
+        a = float(self.scheduler.alphas_cumprod[int(t)])
+        return (x_t - eps_t * np.sqrt(1 - a)) / np.sqrt(a)

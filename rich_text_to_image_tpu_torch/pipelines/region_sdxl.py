@@ -48,7 +48,8 @@ from ..utils.registries import CrossAttentionLayers_XL, attn_layer_resolutions
 from ..utils.token_maps import SEG_RESOLUTION, AttnAggregates
 from ..utils.watermark import apply_watermark
 from .base import encoder_key_gates, ref_cache_matches, ref_fingerprint
-from .region_sd import CAPTURE_REF, RegionDiffusion, RichControlSpec
+from .region_sd import (CAPTURE_REF, RegionDiffusion, RichControlSpec,
+                        composite_noise)
 
 
 def _on_device(make, device, dtype, seed: int):
@@ -472,10 +473,7 @@ class RegionDiffusionXL(RegionDiffusion):
         cond_merged = rows(U, B, U, B, SP)
         cond_quad, cond_spans = rows(U, B, U, B), rows(SP)
 
-        masks = torch.from_numpy(np.stack(
-            [np.asarray(m, np.float32).reshape(h, w) for m in self.masks]
-        )).to(dev)[..., None]
-        mask_sum = masks.sum(0)
+        masks = self._region_masks(h, w)
         color = None
         if spec.use_guidance:
             color = self._color_inputs(fmt, height, width, h, w,
@@ -548,12 +546,7 @@ class RegionDiffusionXL(RegionDiffusion):
                                 key)[0].float()
                     eu, eb = eps[0:1], eps[1:2]
                     eps_ref = eps[2:3] + g * (eps[3:4] - eps[2:3])
-                noise_uncond = eu * mask_sum[None]
-                noise_text = eb * masks[-1][None]
-                if R > 0:
-                    noise_text = noise_text + (es * masks[:-1]).sum(
-                        0, keepdim=True)
-                noise = noise_uncond + g * (noise_text - noise_uncond)
+                noise = composite_noise(masks, g, eu, eb, es[None])
                 lat_new, st = sched.step(plan, i, st, noise, lat)
                 if lat_ref is not None and ref_gates[i]:
                     # past its window the refer latent and its scheduler

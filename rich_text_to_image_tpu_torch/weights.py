@@ -71,7 +71,25 @@ def _text_rule(path: tuple[str, ...]) -> str:
     return f"text_model.{name}.{_SUFFIX[path[-1]]}"
 
 
-RULES = {"unet": _unet_rule, "vae": _vae_rule, "text": _text_rule}
+def _clip_vision_rule(path: tuple[str, ...]) -> str:
+    # the class and position embeddings are bare params in the flax tree
+    if path[-1] == "class_embedding":
+        return "vision_model.embeddings.class_embedding"
+    if path[-1] == "position_embedding":
+        return "vision_model.embeddings.position_embedding.weight"
+    name = ".".join(path[:-1])
+    if name == "patch_embedding":
+        return "vision_model.embeddings.patch_embedding.weight"
+    if name == "visual_projection":  # beside vision_model, as in HF
+        return "visual_projection.weight"
+    name = re.sub(r"layers_(\d+)\.(self_attn|layer_norm)",
+                  r"encoder.layers.\1.\2", name)
+    name = re.sub(r"layers_(\d+)\.fc(\d)", r"encoder.layers.\1.mlp.fc\2", name)
+    return f"vision_model.{name}.{_SUFFIX[path[-1]]}"
+
+
+RULES = {"unet": _unet_rule, "vae": _vae_rule, "text": _text_rule,
+         "clip_vision": _clip_vision_rule}
 
 
 def _flatten(tree: Mapping, prefix=()) -> dict:
@@ -134,7 +152,8 @@ def check_coverage(mapped: Mapping[str, tuple], module: nn.Module) -> None:
 
 def from_flax(params: Mapping, which: str,
               module: nn.Module | None = None) -> dict[str, torch.Tensor]:
-    """The JAX package's ``which`` ("unet", "vae" or "text") parameter tree,
+    """The JAX package's ``which`` ("unet", "vae", "text" or
+    "clip_vision") parameter tree,
     nested dicts of numpy arrays, as the port's float32 state dict. With
     ``module``, also checks that the tree covers its parameters exactly."""
     mapped = map_flax_tree(params, which)

@@ -4,7 +4,8 @@ the port.
 ``evaluation.fixtures.load_color_fixture`` rebuilds the trained tiny
 pipeline (a VAE whose decode is colour-faithful, a UNet trained on
 coloured squares); its parameters are carried into the port with
-``weights.load_flax``. The port's ``prompt_to_img`` must then pass the
+``weights.load_flax``, and the port's own loader of the same files must
+give the same UNet and VAE. The port's ``prompt_to_img`` must then pass the
 thresholds of ``tests/test_color_fixture.py``: colour guidance steers the
 region toward its target (:74-81), so does guidance at half size
 (:84-90), the two-region composition with injection and font-size
@@ -17,8 +18,12 @@ the exact run (:183-200, :203-214). Same latents as the JAX gates (their
 import jax
 import numpy as np
 import pytest
+import torch
 
-from rich_text_to_image_tpu.evaluation.fixtures import load_color_fixture
+from rich_text_to_image_tpu.evaluation.fixtures import (fixture_meta,
+                                                        load_color_fixture)
+from rich_text_to_image_tpu_torch import weights
+from rich_text_to_image_tpu_torch.evaluation import fixtures as TF
 from torch_port_pipes import port_of
 from torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -138,3 +143,21 @@ def test_two_region_turbos_track_exact(model, tag, kw, tol):
         tag, (tl_r, tr_b), (gl_r, gr_b))
     assert tl_b > tl_r + 0.4 and tr_r > tr_b + 0.4, (
         tag, (tl_r, tl_b, tr_b, tr_r))
+
+
+def test_port_fixture_loader_equals_jax_loader():
+    """``evaluation.fixtures.load_color_fixture`` reads the npz files into
+    the port's modules: the UNet and VAE state dicts equal the JAX loader's
+    bridged. The text encoder is each package's own random draw."""
+    tp = TF.load_color_fixture(device="cpu")
+    jp = load_color_fixture()
+    np_tree = lambda t: jax.tree.map(np.asarray, t)
+    for mod, params, which in ((tp.unet, jp.unet_params, "unet"),
+                               (tp.vae, jp.vae_params, "vae")):
+        want = weights.from_flax(np_tree(params), which, mod)
+        got = mod.state_dict()
+        assert set(got) == set(want)
+        for n, t in want.items():
+            torch.testing.assert_close(got[n], t, rtol=0, atol=0, msg=n)
+    assert tp.unet.dtype == torch.float32
+    assert TF.fixture_meta() == fixture_meta()

@@ -137,18 +137,54 @@ def test_resnet_injection_alone_matches_jax(unets):
     _close(eps_t, eps_j)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(inject_cross={}), dict(cross_mapper=torch.zeros(77)),
-    dict(cross_mix=torch.zeros(77)),
-])
-def test_prompt_to_prompt_controls_still_raise(unets, kw):
-    tu = unets[2]
-    with pytest.raises(NotImplementedError):
-        tu(torch.zeros((1, 8, 8, 4)), 1, torch.zeros((1, 77, 32)),
-           controls=T.UNetControls(**kw))
-    with pytest.raises(NotImplementedError):
-        tu(torch.zeros((1, 8, 8, 4)), 1, torch.zeros((1, 77, 32)),
-           capture=T.CaptureSpec(cross_full=True))
+def _p2p_controls(unets, which):
+    """The prompt-to-prompt controls of one kind, as (JAX, port) pairs:
+    every attn2 layer's probabilities of row 0 (captured by the JAX side)
+    blended into rows 1..3 through a Refine gather (``inject_cross``), a
+    Replace matrix (``cross_mapper``), or a gather with a partial per-token
+    mix (``cross_mix``); the last also carries font-size weights and signs,
+    which compose around the blend."""
+    ju, params, _, x, ctx, _, _ = unets
+    _, aux = ju.apply(params, jnp.asarray(x[:1]), jnp.int32(700),
+                      jnp.asarray(ctx[:1]),
+                      capture=J.CaptureSpec(cross_full=True))
+    probs = {n: np.array(p) for n, p in aux["cross_probs_full"].items()}
+    rng = np.random.default_rng(11)
+    mapper = np.arange(77, dtype=np.int32)
+    mapper[3:9] = [2, 2, 3, 4, 4, 5]
+    mix = np.ones(77, np.float32)
+    extra = {}
+    if which == "cross_mapper":
+        mapper = np.abs(rng.standard_normal((77, 77))).astype(np.float32)
+        mapper /= mapper.sum(0, keepdims=True)
+    elif which == "cross_mix":
+        mix = rng.uniform(0, 1, 77).astype(np.float32)
+        w = rng.uniform(0.5, 2.0, (3, 77)).astype(np.float32)
+        sg = np.where(rng.uniform(size=(3, 77)) < 0.2, -1.0, 1.0).astype(
+            np.float32)
+        extra = dict(token_weights=w, token_signs=sg)
+    kw = dict(inject_cross=probs, cross_mapper=mapper, cross_mix=mix,
+              **extra)
+    jkw = {k: ({n: jnp.asarray(p) for n, p in v.items()}
+               if isinstance(v, dict) else jnp.asarray(v))
+           for k, v in kw.items()}
+    tkw = {k: ({n: torch.from_numpy(p) for n, p in v.items()}
+               if isinstance(v, dict) else torch.from_numpy(v))
+           for k, v in kw.items()}
+    return J.UNetControls(**jkw), T.UNetControls(**tkw)
+
+
+@pytest.mark.parametrize("which", ["inject_cross", "cross_mapper",
+                                   "cross_mix"])
+def test_prompt_to_prompt_controls_match_jax(unets, which):
+    """Each prompt-to-prompt control of the UNet (they raised until the
+    prompt-to-prompt baseline was ported) against the JAX package's."""
+    j_controls, t_controls = _p2p_controls(unets, which)
+    eps_j, eps_t = _run_both(unets, j_controls, t_controls,
+                             rows=slice(1, 4))
+    _close(eps_t, eps_j)
+    plain_j, _ = _run_both(unets, None, None, rows=slice(1, 4))
+    assert np.abs(eps_j - plain_j).max() > 1e-3
 
 
 # ------------------------------------------------------------ the rich pass

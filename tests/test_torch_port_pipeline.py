@@ -125,9 +125,9 @@ def test_rich_pass_matches_jax(pipes, plain):
 
 def test_injection_raises(pipes):
     """Injection runs through the in-batch flow now (its parity is held in
-    tests/test_torch_port_injection.py); what still raises is what is not
-    ported: the prompt-to-prompt controls, and a source row with no
-    destination."""
+    tests/test_torch_port_injection.py); what still raises is a source row
+    with no destination. The prompt-to-prompt controls, which raised too,
+    are held against the JAX package below."""
     _, tp = pipes
     tp.masks = [np.ones((1, H, H), np.float32)]
     img = tp.prompt_to_img(["a cat"], height=PX, width=PX,
@@ -135,10 +135,43 @@ def test_injection_raises(pipes):
                            inject_background=0.3)
     assert img.shape == (1, PX, PX, 3) and img.dtype == np.uint8
     x, ctx = torch.zeros((1, H, H, 4)), torch.zeros((1, 77, 32))
-    with pytest.raises(NotImplementedError):
-        tp.unet(x, 1, ctx, controls=T_unet.UNetControls(cross_mapper=x))
     with pytest.raises(ValueError):
         tp.unet(x, 1, ctx, controls=T_unet.UNetControls(inject_src=0))
+
+
+def test_cross_mapper_control_matches_jax(pipes):
+    """The pipeline's UNet with the Replace mapper of a word swap (the
+    ``cross_mapper`` control, which raised until prompt-to-prompt was
+    ported) and the base prompt's cross probabilities, against JAX's."""
+    from rich_text_to_image_tpu.models import unet as J_unet
+    from rich_text_to_image_tpu_torch.utils.seq_aligner import (
+        get_replacement_mapper)
+
+    jp, tp = pipes
+    base, edit = "a cat on a table", "a tiger on a table"
+    mapper = get_replacement_mapper(base, edit, tp.tokenizer)
+    emb = tp.get_text_embeds([base, edit], [""]).numpy()
+    x = np.random.default_rng(4).standard_normal((1, H, H, 4)).astype(
+        np.float32)
+    _, aux = jp.unet.apply(jp.unet_params, jnp.asarray(x), jnp.int32(500),
+                           jnp.asarray(emb[1:2]),
+                           capture=J_unet.CaptureSpec(cross_full=True))
+    probs = {n: np.array(p) for n, p in aux["cross_probs_full"].items()}
+    mix = np.ones(77, np.float32)
+    eps_j, _ = jp.unet.apply(
+        jp.unet_params, jnp.asarray(x), jnp.int32(500), jnp.asarray(emb[2:3]),
+        controls=J_unet.UNetControls(
+            inject_cross={n: jnp.asarray(p) for n, p in probs.items()},
+            cross_mapper=jnp.asarray(mapper), cross_mix=jnp.asarray(mix)))
+    with torch.no_grad():
+        eps_t, _ = tp.unet(
+            torch.from_numpy(x), 500, torch.from_numpy(emb[2:3]),
+            controls=T_unet.UNetControls(
+                inject_cross={n: torch.from_numpy(p)
+                              for n, p in probs.items()},
+                cross_mapper=torch.from_numpy(mapper),
+                cross_mix=torch.from_numpy(mix)))
+    _close(eps_t, eps_j)
 
 
 @pytest.mark.parametrize("px_h,px_w,extra", [

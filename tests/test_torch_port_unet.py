@@ -136,17 +136,64 @@ def test_encode_decode_compose_forward():
     torch.testing.assert_close(eps, eps2)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(controls=T.UNetControls(inject_cross={})),
-    dict(controls=T.UNetControls(cross_mix=torch.zeros(77))),
-    dict(capture=T.CaptureSpec(cross_full=True)),
-])
-def test_unported_controls_raise(kw):
-    """The prompt-to-prompt controls; the injection controls are ported
-    (tests/test_torch_port_injection.py)."""
-    unet = weights.random_init(T.UNet2DCondition(C.TINY_UNET), 0)
-    with pytest.raises(NotImplementedError):
-        unet(torch.zeros((1, 8, 8, 4)), 1, torch.zeros((1, 77, 32)), **kw)
+@pytest.mark.parametrize("which", ["inject_cross", "cross_mix",
+                                   "cross_full"])
+def test_prompt_to_prompt_controls_and_capture_match_jax(which):
+    """The prompt-to-prompt controls and capture (they raised until the
+    prompt-to-prompt baseline was ported) against the JAX package's, on
+    the trained fixture's UNet: ``inject_cross`` blends a base row's full
+    cross probabilities through a Refine gather, ``cross_mix`` with a
+    partial mix through a Replace matrix, and ``cross_full`` captures every
+    attn2 layer's probabilities after the font-size weights and signs."""
+    cfg = C.FIXTURE_UNET
+    ju = J.UNet2DCondition(cfg, dtype=jnp.float32)
+    params = _fixture_params(fast_init(
+        ju, 0, jnp.zeros((1, 8, 8, 4)), jnp.int32(0), jnp.zeros((1, 77, 32))))
+    tu = weights.load_flax(T.UNet2DCondition(cfg), _np_tree(params), "unet")
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 8, 8, 4)).astype(np.float32)
+    ctx = rng.standard_normal((2, 77, 32)).astype(np.float32)
+    tw = np.ones((2, 77), np.float32)
+    ts = np.ones((2, 77), np.float32)
+    tw[1, [3, 4]] = [2.5, 1.5]
+    ts[1, 4] = -1.0
+    kw = dict(token_weights=tw, token_signs=ts)
+    capture = {}
+    if which == "cross_full":
+        capture = dict(cross_full=True)
+    else:
+        _, aux = ju.apply(params, jnp.asarray(x[:1]), jnp.int32(300),
+                          jnp.asarray(ctx[:1]),
+                          capture=J.CaptureSpec(cross_full=True))
+        probs = {n: np.array(p) for n, p in aux["cross_probs_full"].items()}
+        if which == "inject_cross":
+            mapper = np.arange(77, dtype=np.int32)[::-1].copy()
+            mix = np.ones(77, np.float32)
+        else:
+            mapper = np.eye(77, dtype=np.float32)[rng.permutation(77)]
+            mix = rng.uniform(0, 1, 77).astype(np.float32)
+        kw.update(inject_cross=probs, cross_mapper=mapper, cross_mix=mix)
+
+    def controls(mod, conv):
+        return mod.UNetControls(**{
+            k: ({n: conv(p) for n, p in v.items()} if isinstance(v, dict)
+                else conv(v)) for k, v in kw.items()})
+
+    eps_j, aux_j = ju.apply(
+        params, jnp.asarray(x), jnp.int32(700), jnp.asarray(ctx),
+        controls=controls(J, jnp.asarray),
+        capture=J.CaptureSpec(**capture))
+    with torch.no_grad():
+        eps_t, aux_t = tu(torch.from_numpy(x), 700, torch.from_numpy(ctx),
+                          controls=controls(T, torch.from_numpy),
+                          capture=T.CaptureSpec(**capture))
+    _close(eps_t, eps_j)
+    if which == "cross_full":
+        assert set(aux_t["cross_probs_full"]) == set(
+            aux_j["cross_probs_full"]) and len(aux_t["cross_probs_full"]) > 0
+        for n, p in aux_j["cross_probs_full"].items():
+            assert aux_t["cross_probs_full"][n].shape == p.shape
+            _close(aux_t["cross_probs_full"][n], p)
 
 
 def test_unported_configs_raise():
