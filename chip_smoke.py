@@ -59,7 +59,22 @@ is no CUDA device or the port's package is not beside it. Phases, in order:
      memory; the same request with injection through the refer cache; the
      per-call times and the profile of the SDXL forward.
 
-``--kernels-only`` stops after phase 3. The line before the last lists the
+ 16. this slice's entry points and model paths, each on a line of its own:
+     ``grad-guard:`` (after phase 3: every kernel wrapper raises under
+     autograd), ``dual:`` (after phase 4: a full-width UNet with
+     ``dual_cross_attention``, both streams through the kernels, against
+     the plain attention), and before phase 13 ``ckpt:`` (``save_pipeline``
+     of the SD pipeline), ``lora:`` (a seeded LoRA merged into the UNet and
+     the text encoder: scale 0 gives the base image exactly, scale 1 moves
+     it, ``load_params`` of the checkpoint gives it back) and ``demo:``
+     (``cli.gradio_app.run_generate`` of an example at the demo's SD
+     defaults, 12 steps: its R+2 batches, launches by shape, figures,
+     stage seconds and a device trace of its rich pass); after the SDXL
+     paths ``demo-xl:`` (the same at the SDXL defaults, 1024^2, 4 Euler
+     steps). The kernels line adds each one's launches by shape
+     (``phase_launches``).
+
+``--kernels-only`` stops after phase 3 (and the grad guard). The line before the last lists the
 kernels as JSON; the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises.
 """
@@ -132,6 +147,20 @@ EVAL_PROMPTS = ["a cat wearing sunglasses", "a red scooter on a street",
 EVAL_BATCHES = (8, 14, 12, 24, 5, 3, 1)
 
 SDXL_SIZE = 1024  # the SDXL CLI's default, a 128^2 latent
+# the demo's request: an example of cli/examples.py with a footnote, a
+# coloured span and a font size; its 3 span regions make the rich batch
+# R+2 = 5 (the refer-precompute flow, which the demo's default background
+# injection takes)
+DEMO_EXAMPLE = "everything"
+DEMO_RICH = 5
+# the dual-guided UNet's context: 77 text tokens, then 257 image tokens
+# (Versatile Diffusion's two conditions; random here)
+DUAL_CONTEXT = (77, 257)
+# a rank-4 LoRA on every attention projection: W' = W + up @ down, with
+# down ~ N(0, 1/in) and up ~ N(0, LORA_UP_STD^2 / rank), about 30% of the
+# random weights' own spread
+LORA_RANK = 4
+LORA_UP_STD = 0.3
 # the SDXL attn1 layers at 1024^2 (models/config.py SDXL_UNET): 10 at the
 # 64^2 level, 60 at 32^2 (the segmentation level, all captured)
 SDXL_SELF_64, SDXL_SELF_32 = 10, 60
@@ -307,6 +336,8 @@ ATTN_CASES = [
     ("K1_attn_fwd_64x64", "fwd", 2, 20, 1024, 64, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", _RICH, 20, 1024, 64, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", 2, 20, 1000, 64, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", DEMO_RICH, 10, 4096, 64, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", DEMO_RICH, 20, 1024, 64, "full", {}),
     ("K2_attn_fwd_32x32", "fwd", 2, 8, 1024, 80, "full_t", {}),
     ("K2_attn_fwd_32x32", "fwd", _RICH, 8, 1024, 80, "full_t", {}),
     ("K2_attn_fwd_32x32", "fwd", _INJ, 8, 1024, 80, "full_t", {}),
@@ -379,7 +410,7 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
 
     from rich_text_to_image_tpu_torch.ops import attention as A
 
-    rows, k4_tiles, sdxl, evals = {}, {}, {}, {}
+    rows, k4_tiles, sdxl, evals, demo = {}, {}, {}, {}, {}
     sm_hz = _max_sm_hz()
     for name, kind, b, h, s, d, bucket, kw in cases:
         q, k, v = _qkv(b, h, s, d, seed=s + d + b)
@@ -438,7 +469,8 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
                  "bound_by": bound_by,
                  "library_ms": None if avgp else sdpa_ms}
         if d == 64 and not kw and (h, s) in ((10, 4096), (20, 1024)):
-            sdxl.setdefault(name, []).append(entry)
+            (demo if b == DEMO_RICH else sdxl).setdefault(name, []).append(
+                entry)
         if b in EVAL_BATCHES and (h, s, d) in ((8, 4096, 40), (8, 1024, 80)):
             evals.setdefault(name, []).append(entry)
         if (b, h, s, d) == KERNELS[name][2] and not kw:
@@ -458,6 +490,8 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
         rows[name]["sdxl_d64"] = entries
     for name, entries in evals.items():
         rows[name]["eval_batches"] = entries
+    for name, entries in demo.items():
+        rows[name]["demo_d64"] = entries
     _capture_accumulated(SDXL_SELF_32)
     q, k, v = _qkv(2, 8, 4096, 40, seed=2)
     print("kernel K1 wrapper host us a launch at [2,8,4096,40]: "
@@ -802,12 +836,43 @@ def breakdown_phase(pipe) -> dict:
     return out
 
 
+def _device_busy(fn) -> tuple:
+    """(device kernels, their busy ms: the union of their intervals) of one
+    call of ``fn`` under ``torch.profiler``, after one call un-profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:
+        busy_us += max(0.0, e - max(s, end))
+        end = max(end, e)
+    return len(spans), busy_us / 1e3
+
+
+def _profile_line(what: str, fn, wall_ms: float) -> None:
+    """The ``profile:`` line of one call of ``fn``: its device kernels,
+    their busy time, and the device's idle share of ``wall_ms``, the call's
+    un-profiled time."""
+    n, busy = _device_busy(fn)
+    idle = f"{1 - busy / wall_ms:.3f}" if n else "not measured"
+    print(f"profile: {what}: {n} device kernels, busy {busy:.3f} ms of "
+          f"{wall_ms:.3f} ms un-profiled, idle share {idle}", flush=True)
+
+
 def profile_phase(pipe, unet_ms: dict) -> None:
     """One UNet forward at B=2 and B=R+2 under ``torch.profiler``: the number
     of kernels it launches, their summed device time, and the device's idle
     share of the forward's un-profiled time from the breakdown phase."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device="cuda").manual_seed(3)
     lat = torch.randn((1, 64, 64, 4), generator=g, device="cuda")
@@ -815,24 +880,8 @@ def profile_phase(pipe, unet_ms: dict) -> None:
     for b in (2, REGIONS + 2):
         x = torch.cat([lat] * b)
         with torch.no_grad():
-            pipe.unet(x, 500, ctx[:b])
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                pipe.unet(x, 500, ctx[:b])
-                torch.cuda.synchronize()
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA)
-        busy_us, end = 0.0, float("-inf")
-        for s, e in spans:  # union of the kernels' intervals
-            busy_us += max(0.0, e - max(s, end))
-            end = max(end, e)
-        wall = unet_ms[f"unet_b{b}_ms"]
-        idle = (f"{1 - busy_us / 1e3 / wall:.3f}" if spans else "not measured")
-        print(f"profile: unet B={b}: {len(spans)} device kernels, busy "
-              f"{busy_us / 1e3:.3f} ms of {wall:.3f} ms un-profiled, idle "
-              f"share {idle}", flush=True)
+            _profile_line(f"unet B={b}", lambda: pipe.unet(x, 500, ctx[:b]),
+                          unet_ms[f"unet_b{b}_ms"])
 
 
 def _image_diff(a, b) -> float:
@@ -1046,6 +1095,10 @@ def _count_eval(acc: dict) -> dict:
 
 
 def _expect_by_shape(tag: str, got: dict, seen: list, captures: int = 0):
+    _expect_shapes(tag, got, _sd_launches(seen, captures))
+
+
+def _sd_launches(seen: list, captures: int = 0) -> dict:
     """The SD-1.5 512^2 launches of the UNet forwards of batches ``seen``:
     5 K1 at 64^2 and 5 K2 at 32^2 each, but for ``captures`` plain-pass
     capture steps at batch 2, whose 5 32^2 layers take K3."""
@@ -1057,7 +1110,7 @@ def _expect_by_shape(tag: str, got: dict, seen: list, captures: int = 0):
     if captures:
         want[("full_t", 2, 8, 1024, 1024, 80)] -= 5 * captures
         want[("avgp", 2, 8, 1024, 1024, 80)] = 5 * captures
-    _expect_shapes(tag, got, want)
+    return want
 
 
 def _expect_shapes(tag: str, got: dict, want: dict) -> None:
@@ -1495,7 +1548,6 @@ def sdxl_breakdown_phase(xl) -> None:
     one B=2 forward under ``torch.profiler``."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     out = {}
     with torch.no_grad():
@@ -1521,24 +1573,406 @@ def sdxl_breakdown_phase(xl) -> None:
     print(f"sdxl-breakdown: {json.dumps(out)} on {_smi()}", flush=True)
     x, emb, pooled, tid = _xl_inputs(xl, 2, 3)
     with torch.no_grad():
-        xl._fwd(x, 500, emb, pooled, tid)
+        _profile_line("sdxl unet B=2",
+                      lambda: xl._fwd(x, 500, emb, pooled, tid),
+                      out["unet_b2_ms"])
+
+
+# the row of the kernels line that each launch bucket counts for
+BUCKET_ROW = {"full": "K1_attn_fwd_64x64", "full_t": "K2_attn_fwd_32x32",
+              "avgp": "K3_attn_avgp_32x32", "stream": "K4_attn_stream_96x96"}
+
+
+def _record_phase(rows: dict, tag: str, by_shape: dict) -> None:
+    """Adds a phase's launches by shape to the rows of the kernels line:
+    ``phase_launches[tag]["B,H,Sq,Skv,head dim"]``."""
+    for (bucket, *shape), n in sorted(by_shape.items()):
+        rows[BUCKET_ROW[bucket]].setdefault("phase_launches", {}).setdefault(
+            tag, {})[",".join(map(str, shape))] = n
+
+
+def _keyed(by_shape: dict) -> dict:
+    return {",".join(map(str, k)): n for k, n in sorted(by_shape.items())}
+
+
+def grad_guard_phase() -> None:
+    """Each CUDA kernel wrapper, given inputs that require a gradient with
+    grad mode on, must raise (the kernels have no backward pass) and launch
+    nothing; under ``torch.no_grad()`` the same calls launch. A wrapper that
+    returns a tensor cut off from the graph fails the run."""
+    import torch
+
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.ops import conv as CV
+
+    q, k, v = (t.detach().requires_grad_() for t in _qkv(2, 8, 1024, 80, 7))
+    lse = torch.zeros((2, 8, 1024), device="cuda")
+    x, w, bias = _conv_inputs(2, 64, 64, 320, 320, 7)
+    x = x.detach().requires_grad_()
+    calls = {
+        "flash_attention": lambda: A.flash_attention(q, k, v),
+        "flash_attention_avg_probs":
+            lambda: A.flash_attention_avg_probs(q, k, v),
+        "flash_attention_lse": lambda: A.flash_attention_lse(q, k, v),
+        "avg_probs_from_lse": lambda: A.avg_probs_from_lse(q, k, lse),
+        "conv3x3": lambda: CV.conv3x3(x, w, bias),
+    }
+    A.reset_launches()
+    CV.reset_launches()
+    for name, fn in calls.items():
+        try:
+            fn()
+        except RuntimeError as e:
+            if not str(e).startswith(f"{name}:") or "no backward" not in str(e):
+                raise AssertionError(f"grad-guard: {name} raised another "
+                                     f"error: {e}") from e
+        else:
+            raise AssertionError(f"grad-guard: {name} returned under "
+                                 "autograd, with no gradient to give")
+    launched = {**A.LAUNCHES, **CV.LAUNCHES}
+    if any(launched.values()):
+        raise AssertionError(f"grad-guard: launched {launched}")
+    with torch.no_grad():
+        for fn in calls.values():
+            fn()
+    torch.cuda.synchronize()
+    launched = {**A.LAUNCHES, **CV.LAUNCHES}
+    print(f"grad-guard: {len(calls)} wrappers raise under autograd "
+          f"({', '.join(calls)}) and launch nothing; under no_grad they "
+          f"launch {launched}", flush=True)
+    if launched != {"full": 0, "full_t": 1, "avgp": 2, "stream": 0,
+                    "conv3x3": 1}:
+        raise AssertionError(f"grad-guard: under no_grad {launched}")
+
+
+def dual_phase(pipe) -> dict:
+    """A full-width SD-1.5 UNet with ``dual_cross_attention`` (the
+    Versatile Diffusion dual-guided block: condition lengths 77 and 257,
+    routing (1, 0), mix 0.5), drawn on the card; one B=2 forward on a 64^2
+    latent and a 334-token context through the kernels (both streams of
+    each block: 10 K1 at 64^2 and 10 K2 at 32^2) against the plain
+    attention, eps within UNET_RTOL; its time, its device kernels' busy
+    time under ``torch.profiler``, and the single-stream UNet's time on the
+    same latent and the text rows. Returns the launches by shape."""
+    import dataclasses
+
+    import torch
+
+    from rich_text_to_image_tpu_torch import weights
+    from rich_text_to_image_tpu_torch.models import config as cfgs
+    from rich_text_to_image_tpu_torch.models.unet import UNet2DCondition
+    from rich_text_to_image_tpu_torch.ops import attention as A
+
+    cfg = dataclasses.replace(cfgs.SD15_UNET, dual_cross_attention=True)
+    t0 = time.time()
+    with torch.device("meta"):
+        unet = UNet2DCondition(cfg)
+    unet = weights.random_init_device(
+        unet.to(torch.bfloat16).to_empty(device="cuda"), 0).eval()
+    unet.requires_grad_(False)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in unet.parameters())
+    init_s = time.time() - t0
+    g = torch.Generator(device="cuda").manual_seed(5)
+    lat = torch.randn((1, 64, 64, 4), generator=g, device="cuda")
+    x = torch.cat([lat, lat])
+    text = pipe.get_text_embeds(["a cat riding a scooter"], [""])
+    image = torch.randn((2, DUAL_CONTEXT[1], text.shape[-1]), generator=g,
+                        device="cuda")
+    ctx = torch.cat([text, image], dim=1)
+
+    def plain():
+        with A.plain_attention():
+            return unet(x, 500, ctx)
+
+    with torch.no_grad():
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            xl._fwd(x, 500, emb, pooled, tid)
-            torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
-    for s0, e0 in spans:
-        busy_us += max(0.0, e0 - max(s0, end))
-        end = max(end, e0)
-    wall = out["unet_b2_ms"]
-    idle = f"{1 - busy_us / 1e3 / wall:.3f}" if spans else "not measured"
-    print(f"profile: sdxl unet B=2: {len(spans)} device kernels, busy "
-          f"{busy_us / 1e3:.3f} ms of {wall:.3f} ms un-profiled, idle share "
-          f"{idle}", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launches()
+        eps_k, _ = unet(x, 500, ctx)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        by_shape = dict(A.LAUNCHES_BY_SHAPE)
+        eps_p, _ = plain()
+        ms = _time_ms(lambda: unet(x, 500, ctx), 3)
+        plain_ms = _time_ms(plain, 2)
+        n_kernels, busy = _device_busy(lambda: unet(x, 500, ctx))
+        single_ms = _time_ms(lambda: pipe.unet(x, 500, text), 3)
+    _expect_shapes("dual", by_shape, {("full", 2, 8, 4096, 4096, 48): 10,
+                                      ("full_t", 2, 8, 1024, 1024, 80): 10})
+    err = ((eps_k.float() - eps_p.float()).abs().max()
+           / eps_p.float().abs().max()).item()
+    fin = bool(torch.isfinite(eps_k).all())
+    print(f"dual: UNet with dual_cross_attention, {n_params} parameters "
+          f"drawn on the card in {init_s:.1f} s; B=2 forward on a 64^2 "
+          f"latent, context {sum(DUAL_CONTEXT)} tokens: eps rel max|d|="
+          f"{err:.3e} against the plain attention (tol {UNET_RTOL}), "
+          f"finite={fin}; launches by shape {json.dumps(_keyed(by_shape))}; "
+          f"forward {ms:.3f} ms (plain attention {plain_ms:.3f} ms), "
+          f"{n_kernels} device kernels busy {busy:.3f} ms of it (idle share "
+          f"{1 - busy / ms:.3f}); the single-stream UNet's forward on the "
+          f"text rows {single_ms:.3f} ms; peak device memory {peak} bytes "
+          f"({peak / 2**30:.2f} GiB) on {_smi()}", flush=True)
+    if not fin or err > UNET_RTOL:
+        raise AssertionError("dual: the UNet through the kernels disagrees "
+                             "with the plain attention")
+    del unet
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_shape
+
+
+def ckpt_phase(pipe, path: str) -> None:
+    """``save_pipeline`` of the SD pipeline (UNet bfloat16, VAE and text
+    tower float32) into ``path``; the bytes and the seconds."""
+    import torch
+
+    from rich_text_to_image_tpu_torch.models.checkpoint import save_pipeline
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    nbytes = save_pipeline(path, pipe)
+    secs = time.time() - t0
+    files = {f: os.path.getsize(os.path.join(path, "params", f))
+             for f in sorted(os.listdir(os.path.join(path, "params")))}
+    print(f"ckpt: save_pipeline wrote {nbytes} bytes ({nbytes / 2**30:.3f} "
+          f"GiB) in {secs:.2f} s ({nbytes / secs / 1e9:.2f} GB/s): "
+          f"{json.dumps(files)}", flush=True)
+    if nbytes != sum(files.values()):
+        raise AssertionError("ckpt: the bytes written are not the files'")
+
+
+def _lora_dicts(pipe, seed: int) -> tuple:
+    """A rank-LORA_RANK LoRA from ``seed`` for every UNet attention
+    projection and every text-encoder q/k/v/out_proj, in diffusers' names
+    (numpy float32)."""
+    import numpy as np
+
+    from rich_text_to_image_tpu_torch.models import convert
+
+    rng = np.random.default_rng(seed)
+
+    def pair(w):
+        d_out, d_in = w.shape
+        down = rng.standard_normal((LORA_RANK, d_in), np.float32) / np.sqrt(
+            np.float32(d_in))
+        up = rng.standard_normal((d_out, LORA_RANK), np.float32) * np.float32(
+            LORA_UP_STD / np.sqrt(LORA_RANK))
+        return down, up
+
+    unet, text = {}, {}
+    for key, w in pipe.unet.state_dict().items():
+        m = convert._UNET_KEY.match(key)
+        if m:
+            stem = f"{m.group(1)}.processor.{convert._UNET_PROJ[m.group(2)]}"
+            unet[f"{stem}.down.weight"], unet[f"{stem}.up.weight"] = pair(w)
+    for key, w in pipe.text_encoder.state_dict().items():
+        if key.endswith("_proj.weight"):
+            stem = key.removesuffix(".weight") + ".lora_linear_layer"
+            text[f"{stem}.down.weight"], text[f"{stem}.up.weight"] = pair(w)
+    return unet, text
+
+
+def lora_phase(pipe, out_dir: str, ckpt: str, rows: dict) -> None:
+    """The 512^2 request of ``e2e:`` at 4 steps, with a seeded LoRA merged
+    into the UNet (128 projections: q/k/v/out of attn1 and attn2 in its 16
+    transformer blocks) and the text encoder (48: q/k/v/out_proj of its 12
+    layers): at scale 0 the image must be the base run's exactly, at scale
+    1 it must move, with the same launches; then ``load_params`` of the
+    ``ckpt:`` checkpoint restores the base weights and the request must
+    give the base image again, within 0.5 uint8 steps. cuDNN runs its
+    deterministic algorithms here (the colour guidance's VAE gradient), so
+    that equal weights give equal images. The checkpoint is deleted at the
+    end."""
+    import shutil
+
+    import torch
+
+    from rich_text_to_image_tpu_torch.models.checkpoint import load_params
+    from rich_text_to_image_tpu_torch.models.convert import (apply_lora_text,
+                                                            apply_lora_unet)
+    from rich_text_to_image_tpu_torch.models.unet import Attention
+    from rich_text_to_image_tpu_torch.ops import attention as A
+
+    lora_u, lora_t = _lora_dicts(pipe, 8)
+    base_u = {k: v.clone() for k, v in pipe.unet.state_dict().items()}
+    base_t = {k: v.clone() for k, v in pipe.text_encoder.state_dict().items()}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs, counts = {}, {}
+
+    def run(tag):
+        launches, _, _, rich, _ = sample_phase(
+            tag, pipe, os.path.join(out_dir, tag), 512, STEPS_SHORT,
+            agg_start=1)
+        runs[tag] = (launches, dict(A.LAUNCHES_BY_SHAPE), rich)
+
+    try:
+        run("lora-base")
+        for scale in (0.0, 1.0):
+            u = apply_lora_unet(base_u, lora_u, scale)
+            t = apply_lora_text(base_t, lora_t, scale)
+            counts[scale] = (sum(u[k] is not base_u[k] for k in u),
+                             sum(t[k] is not base_t[k] for k in t))
+            pipe.unet.load_state_dict(u, strict=True)
+            pipe.text_encoder.load_state_dict(t, strict=True)
+            run(f"lora-scale{scale:g}")
+        t0 = time.time()
+        trees = load_params(ckpt, device=pipe.device)
+        for tree, mod in (("unet", pipe.unet), ("vae", pipe.vae),
+                          ("text", pipe.text_encoder)):
+            mod.load_state_dict(trees[tree], strict=True)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        restored = all(torch.equal(a, base_u[k]) for k, a in
+                       pipe.unet.state_dict().items())
+        run("lora-restored")
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(ckpt, ignore_errors=True)
+    base = runs["lora-base"]
+    d0 = _image_diff(runs["lora-scale0"][2], base[2])
+    d1 = _image_diff(runs["lora-scale1"][2], base[2])
+    dr = _image_diff(runs["lora-restored"][2], base[2])
+    print(f"lora: rank {LORA_RANK}, merged {counts[1.0][0]} UNet and "
+          f"{counts[1.0][1]} text-encoder projections; mean |image "
+          f"difference| against the base run: scale 0 {d0:.4f} (must be 0), "
+          f"scale 1 {d1:.4f}, restored from the checkpoint {dr:.4f} (bound "
+          f"0.5); load_params and load_state_dict {load_s:.2f} s, UNet "
+          f"weights equal to the base's: {restored}; launches "
+          f"{runs['lora-scale1'][0]} as the base run's", flush=True)
+    # every projection: 4 a self- or cross-attention layer of the UNet, 4 a
+    # layer of the text encoder
+    want = (4 * sum(isinstance(m, Attention) for m in pipe.unet.modules()),
+            4 * len(pipe.text_encoder.text_model.encoder.layers))
+    if counts[0.0] != want or counts[1.0] != want:
+        raise AssertionError(f"lora: merged counts {counts}, expected {want}")
+    if d0 != 0.0 or d1 == 0.0 or dr > 0.5 or not restored:
+        raise AssertionError("lora: the images do not move as they must")
+    for tag in ("lora-scale0", "lora-scale1", "lora-restored"):
+        if runs[tag][:2] != base[:2]:
+            raise AssertionError(f"{tag}: launches {runs[tag][:2]}, the base "
+                                 f"run's {base[:2]}")
+    _record_phase(rows, "lora", runs["lora-scale1"][1])
+    _record_phase(rows, "ckpt", runs["lora-restored"][1])
+
+
+def _demo_request(kind: str):
+    """(``APP_DEFAULTS[kind]``, ``DEMO_EXAMPLE`` as the demo's JSON string,
+    its span regions R)."""
+    from rich_text_to_image_tpu_torch.cli.examples import (APP_DEFAULTS,
+                                                           EXAMPLES)
+    from rich_text_to_image_tpu_torch.models.tokenizer import CLIPTokenizer
+    from rich_text_to_image_tpu_torch.utils import richtext
+
+    doc = EXAMPLES[DEMO_EXAMPLE]
+    prompts, _, _ = richtext.get_region_diffusion_input(
+        CLIPTokenizer.byte_level()._tokenize, richtext.parse_json(doc))
+    return APP_DEFAULTS[kind], json.dumps(doc), len(prompts) - 1
+
+
+def demo_phase(tag: str, pipe, kind: str, steps: int, out_dir: str,
+               trace_dir: str, want_fn) -> dict:
+    """``cli.gradio_app.run_generate`` with ``DEMO_EXAMPLE`` at the demo's
+    defaults for ``kind`` (``steps`` in place of its 41), as the demo's
+    button calls it: the plain pass with the refer cache, the token maps,
+    the figures, the rich pass through the refer-precompute flow (R+2 rows
+    a step). Asserts the UNet batches, the launches by shape
+    (``want_fn(calls, seen)``), finite non-constant images and the written
+    figures; prints the stage seconds (``utils.tracing``) and the peak
+    device memory. Then the same request again with its rich pass under
+    ``utils.tracing.device_trace`` into ``trace_dir``, whose file must be
+    non-empty. Returns
+    the first run's launches by shape."""
+    import numpy as np
+    import torch
+
+    from rich_text_to_image_tpu_torch.cli.gradio_app import run_generate
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.utils import tracing
+
+    d, text, regions = _demo_request(kind)
+    if regions + 2 != DEMO_RICH:
+        raise AssertionError(f"{tag}: {regions} span regions, expected "
+                             f"{DEMO_RICH - 2}")
+    size = d["resolution"]
+    calls = pipe.scheduler.plan(steps).num_steps
+
+    def request():
+        return run_generate(
+            pipe, size, text, "", d["seed"], steps, d["guidance_weight"],
+            d["color_guidance_weight"], d["inject_selfattn"],
+            d["inject_background"], d["segment_threshold"],
+            d["num_segments"], vis_dir=out_dir)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    tracing.phase_report()
+    outs, seen = _batches(pipe, request)
+    stages = tracing.phase_report()
+    peak = torch.cuda.max_memory_allocated()
+    by_shape = dict(A.LAUNCHES_BY_SHAPE)
+    if seen != [2] * calls + [DEMO_RICH] * calls:
+        raise AssertionError(f"{tag}: UNet batches {seen}, expected {calls} "
+                             f"of 2 then {calls} of R+2 = {DEMO_RICH}")
+    _expect_shapes(tag, by_shape, want_fn(calls, seen))
+    for name, img in (("plain", outs[0]), ("rich", outs[1])):
+        f = img.astype(np.float64)
+        if img.shape != (size, size, 3) or not np.isfinite(f).all() or (
+                f.std() == 0):
+            raise AssertionError(f"{tag}: the {name} image is wrong: "
+                                 f"{img.shape}, std {f.std()}")
+    figures = [f"segmentation_k{d['num_segments']}_seed{d['seed']}.png",
+               f"average_seed{d['seed']}_attn0.png"]
+    if not all(os.path.getsize(os.path.join(out_dir, f)) for f in figures):
+        raise AssertionError(f"{tag}: a figure is empty: {figures}")
+
+    orig = pipe.prompt_to_img
+    traces = []
+
+    def traced(*a, **kw):
+        with tracing.device_trace(trace_dir) as path:
+            traces.append(path)
+            return orig(*a, **kw)
+
+    pipe.prompt_to_img = traced
+    try:
+        request()
+    finally:
+        del pipe.prompt_to_img
+    tracing.phase_report()
+    nbytes = os.path.getsize(traces[0])
+    print(f"{tag}: run_generate of {DEMO_EXAMPLE!r} at APP_DEFAULTS["
+          f"{kind!r}] ({size}x{size}, {steps} steps in place of "
+          f"{d['steps']}, inject_background {d['inject_background']}, "
+          f"segment_threshold {d['segment_threshold']}): stage seconds "
+          f"{json.dumps(stages)}; UNet batches {_runs(seen)} (rich batch "
+          f"R+2 = {DEMO_RICH}); launches by shape "
+          f"{json.dumps(_keyed(by_shape))}; figures {figures}; peak device "
+          f"memory {peak} bytes ({peak / 2**30:.2f} GiB); device trace of "
+          f"the rich pass {traces[0]} ({nbytes} bytes) on {_smi()}",
+          flush=True)
+    if nbytes == 0:
+        raise AssertionError(f"{tag}: the device trace is empty")
+    return by_shape
+
+
+def _demo_sd_launches(calls: int, seen: list) -> dict:
+    """The SD demo at 512^2: the plain pass captures at its last step."""
+    return _sd_launches(seen, captures=1)
+
+
+def _demo_xl_launches(calls: int, seen: list) -> dict:
+    """The SDXL demo at 1024^2 with the plain pass capturing from step 1:
+    10 K1 at 64^2 and 60 at 32^2 a forward at head dim 64, but the 32^2
+    ones of the capture steps, which take K3."""
+    rb = DEMO_RICH
+    return {("full", 2, 10, 4096, 4096, 64): calls * SDXL_SELF_64,
+            ("full", 2, 20, 1024, 1024, 64): SDXL_SELF_32,
+            ("avgp", 2, 20, 1024, 1024, 64): (calls - 1) * SDXL_SELF_32,
+            ("full", rb, 10, 4096, 4096, 64): calls * SDXL_SELF_64,
+            ("full", rb, 20, 1024, 1024, 64): calls * SDXL_SELF_32}
 
 
 def main(kernels_only: bool = False) -> int:
@@ -1554,6 +1988,7 @@ def main(kernels_only: bool = False) -> int:
               "package is not beside it)", file=sys.stderr)
         return 2
     sys.path.insert(0, root)
+    t_start = time.time()
     print("device: " + _smi(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -1569,6 +2004,7 @@ def main(kernels_only: bool = False) -> int:
     rows = attention_kernel_phase()
     conv_row, conv_times = conv_kernel_phase()
     rows.update(conv_row)
+    grad_guard_phase()
     if kernels_only:
         print(_smi(), flush=True)
         return 0
@@ -1579,6 +2015,7 @@ def main(kernels_only: bool = False) -> int:
     print(f"init: full-width SD-1.5 pipeline, random weights, "
           f"{time.time() - t0:.1f} s", flush=True)
     unet_phase(pipe)
+    _record_phase(rows, "dual", dual_phase(pipe))
     out = os.path.join(root, "results", "chip_smoke")
 
     # 512^2: per UNet call 5 launches at 64^2 and 5 at 32^2, the
@@ -1671,9 +2108,16 @@ def main(kernels_only: bool = False) -> int:
                 raise AssertionError(f"{name}: no evaluation path launched "
                                      f"it at {entry['shape']}")
     print("eval: launches by (bucket, B, H, Sq, Skv, head dim) "
-          + json.dumps({",".join(map(str, k)): n
-                        for k, n in sorted(acc["by_shape"].items())}),
-          flush=True)
+          + json.dumps(_keyed(acc["by_shape"])), flush=True)
+
+    # the demo's entry point and the checkpoint and LoRA paths; the lora:
+    # phase leaves the pipeline on the checkpoint's weights, the base ones
+    ckpt = os.path.join(out, "ckpt")
+    ckpt_phase(pipe, ckpt)
+    lora_phase(pipe, os.path.join(out, "lora"), ckpt, rows)
+    _record_phase(rows, "demo", demo_phase(
+        "demo", pipe, "SD", STEPS, os.path.join(out, "demo"),
+        os.path.join(out, "trace", "demo"), _demo_sd_launches))
 
     profile_phase(pipe, breakdown_phase(pipe))
 
@@ -1711,12 +2155,23 @@ def main(kernels_only: bool = False) -> int:
                     f"sdxl: {name} launched {entry['launches']} times at "
                     f"{entry['shape']}, expected {want}: {by_shape}")
     print("sdxl: launches by (bucket, B, H, Sq, Skv, head dim) "
-          + json.dumps({",".join(map(str, k)): n
-                        for k, n in sorted(by_shape.items())}), flush=True)
+          + json.dumps(_keyed(by_shape)), flush=True)
     sdxl_refpre_phase(xl, os.path.join(out, "sdxl_refpre"), rich_xl)
+    with _agg_start(xl, 1):
+        by_shape = demo_phase("demo-xl", xl, "SDXL", STEPS_SHORT,
+                              os.path.join(out, "demo_xl"),
+                              os.path.join(out, "trace", "demo_xl"),
+                              _demo_xl_launches)
+    _record_phase(rows, "demo-xl", by_shape)
+    for entry in rows["K1_attn_fwd_64x64"]["demo_d64"]:
+        b, h, s, d = entry["shape"]
+        entry["launches"] = by_shape.get(("full", b, h, s, s, d), 0)
+        if not entry["launches"]:
+            raise AssertionError(f"demo-xl: no launch at {entry['shape']}")
     sdxl_breakdown_phase(xl)
 
     print(_smi(), flush=True)
+    print(f"command time: {time.time() - t_start:.1f} s", flush=True)
     if any(r["launches"] in (None, 0) for r in rows.values()):
         raise AssertionError(f"a kernel was launched on no path: {rows}")
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -4,7 +4,9 @@ Counterpart of ``rich_text_to_image_tpu/models/unet.py``. SDXL's
 ``text_time`` micro-conditioning adds ``add_embedding`` over the pooled
 text row and the sinusoidal embedding of the six time ids
 (``added_cond={"text_embeds", "time_ids"}``) to the time embedding; levels
-of depth 0 (``DownBlock2D``, ``UpBlock2D``) hold no transformer. The forward
+of depth 0 (``DownBlock2D``, ``UpBlock2D``) hold no transformer. With
+``dual_cross_attention`` each attention block holds two transformer streams
+over a concatenated condition (:class:`DualTransformer2DModel`). The forward
 returns ``(eps, aux)``: ``capture`` (:class:`CaptureSpec`) names the layers
 whose head-averaged attention probabilities go into ``aux``, and ``controls``
 (:class:`UNetControls`) carries the font-size token weights and the
@@ -450,6 +452,55 @@ class Transformer2DModel(nn.Module):
         return h + residual
 
 
+class DualTransformer2DModel(nn.Module):
+    """Two :class:`Transformer2DModel` streams over a concatenated
+    condition sequence (``UNetConfig.dual_cross_attention``; diffusers'
+    ``DualTransformer2DModel``, the dual-guided Versatile Diffusion block).
+
+    ``context`` is the concatenation of two conditions of lengths
+    ``dual_condition_lengths``; condition ``i`` is encoded by stream
+    ``dual_transformer_index[i]``, and the two residual deltas are mixed by
+    ``dual_mix_ratio``: ``x + mix·d0 + (1 − mix)·d1``. Both streams always
+    run, and the capture, injection and font-size controls reach both (their
+    layers are named ``<block>.transformers.{j}...``)."""
+
+    def __init__(self, cfg: UNetConfig, heads: int, dim: int, depth: int,
+                 layer_name: str):
+        super().__init__()
+        index = tuple(cfg.dual_transformer_index)
+        if tuple(sorted(index)) != (0, 1):
+            # both streams hold parameters; a routing that leaves one
+            # unused could not load a dual checkpoint
+            raise ValueError("transformer_index must be a permutation of "
+                             f"(0, 1), got {index}")
+        self.transformer_index = index
+        self.condition_lengths = tuple(cfg.dual_condition_lengths)
+        self.mix_ratio = float(cfg.dual_mix_ratio)
+        self.transformers = nn.ModuleList([
+            Transformer2DModel(cfg, heads, dim, depth,
+                               f"{layer_name}.transformers.{j}")
+            for j in range(2)])
+
+    def forward(self, x, context, controls, capture, aux):
+        deltas, start = [], 0
+        for i, n in enumerate(self.condition_lengths):
+            stream = self.transformers[self.transformer_index[i]]
+            out = stream(x, context[:, start:start + n], controls, capture,
+                         aux)
+            deltas.append(out - x)
+            start += n
+        return (x + deltas[0] * self.mix_ratio
+                + deltas[1] * (1.0 - self.mix_ratio))
+
+
+def _transformer(cfg: UNetConfig, heads: int, dim: int, depth: int,
+                 layer_name: str) -> nn.Module:
+    """The attention block's transformer: two streams iff the config asks."""
+    cls = (DualTransformer2DModel if cfg.dual_cross_attention
+           else Transformer2DModel)
+    return cls(cfg, heads, dim, depth, layer_name)
+
+
 # -------------------------------------------------------------------- blocks
 class DownBlock(nn.Module):
     """CrossAttnDownBlock2D (``attentions`` set) or DownBlock2D."""
@@ -464,8 +515,8 @@ class DownBlock(nn.Module):
                           cfg.norm_num_groups, f"{layer_name}.resnets.{i}")
             for i in range(n)])
         self.attentions = nn.ModuleList([
-            Transformer2DModel(cfg, heads, out_ch, depth,
-                               f"{layer_name}.attentions.{i}")
+            _transformer(cfg, heads, out_ch, depth,
+                         f"{layer_name}.attentions.{i}")
             for i in range(n)]) if cross else None
         self.downsamplers = (nn.ModuleList([_Conv(out_ch, 2)])
                              if add_downsample else None)
@@ -497,8 +548,8 @@ class UpBlock(nn.Module):
                           f"{layer_name}.resnets.{i}")
             for i in range(n)])
         self.attentions = nn.ModuleList([
-            Transformer2DModel(cfg, heads, out_ch, depth,
-                               f"{layer_name}.attentions.{i}")
+            _transformer(cfg, heads, out_ch, depth,
+                         f"{layer_name}.attentions.{i}")
             for i in range(n)]) if cross else None
         self.upsamplers = (nn.ModuleList([_Conv(out_ch, 1)])
                            if add_upsample else None)
@@ -523,7 +574,7 @@ class MidBlock(nn.Module):
             ResnetBlock2D(ch, ch, temb, cfg.norm_num_groups,
                           f"mid_block.resnets.{i}") for i in range(2)])
         self.attentions = nn.ModuleList([
-            Transformer2DModel(cfg, heads, ch, depth, "mid_block.attentions.0")])
+            _transformer(cfg, heads, ch, depth, "mid_block.attentions.0")])
 
     def forward(self, x, temb, context, controls, capture, aux):
         x = self.resnets[0](x, temb, controls, capture, aux)
@@ -547,9 +598,6 @@ class UNet2DCondition(nn.Module):
             raise NotImplementedError(
                 f"addition_embed_type {cfg.addition_embed_type!r}: only SDXL's "
                 "text_time is ported")
-        if cfg.dual_cross_attention:
-            raise NotImplementedError(
-                "DualTransformer2D is not ported yet (ROADMAP.md)")
         self.cfg = cfg
         ch0 = cfg.block_out_channels[0]
         temb = cfg.time_embed_dim

@@ -5,7 +5,9 @@ Counterpart of ``rich_text_to_image_tpu/ops/attention.py``. Each kernel
 wrapper has a plain PyTorch version beside it that computes the same
 function (einsum, softmax and einsum with fp32 statistics). A wrapper takes
 the plain version only for a tensor that lies on the CPU; for a CUDA tensor
-it launches its kernel (``csrc/attention.cu``) or raises.
+it launches its kernel (``csrc/attention.cu``) or raises. The kernels
+have no backward pass: on a CUDA tensor a wrapper raises when grad mode is
+on and an input requires a gradient (``build.refuse_autograd``).
 
   * ``flash_attention`` — softmax(Q·Kᵀ·scale)·V over latent tokens. One
     CUDA kernel serves the three buckets of the JAX dispatch: the classic
@@ -37,6 +39,8 @@ import math
 
 import numpy as np
 import torch
+
+from .build import refuse_autograd
 
 _LOG2E = 1.4426950408889634
 
@@ -330,6 +334,7 @@ def flash_attention(q, k, v, scale: float | None = None,
         if bucket == "stream":
             return flash_attention_stream_plain(q, k, v, scale, block_k)
         return flash_attention_plain(q, k, v, scale)
+    refuse_autograd("flash_attention", q, k, v)
     max_keys = _stream_tile(block_k) if bucket == "stream" else 128
     out = _launch_fwd("flash_attention", q, k, v, scale, None, max_keys)
     _count(bucket, q, k)
@@ -376,6 +381,7 @@ def flash_attention_avg_probs(q, k, v, scale: float | None = None):
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_avg_probs_plain(q, k, v, scale)
+    refuse_autograd("flash_attention_avg_probs", q, k, v)
     out, lse = flash_attention_lse(q, k, v, scale)
     return out, avg_probs_from_lse(q, k, lse, scale)
 
@@ -388,6 +394,7 @@ def flash_attention_lse(q, k, v, scale: float | None = None):
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v, scale)
+    refuse_autograd("flash_attention_lse", q, k, v)
     b, h, sq, _ = q.shape
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     out = _launch_fwd("flash_attention_lse", q, k, v, scale, lse, 128)
@@ -403,6 +410,7 @@ def avg_probs_from_lse(q, k, lse, scale: float | None = None):
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return avg_probs_from_lse_plain(q, k, lse, scale)
+    refuse_autograd("avg_probs_from_lse", q, k, lse)
     _check("avg_probs_from_lse", q, k)
     b, h, sq, d = q.shape
     skv = k.shape[2]

@@ -107,6 +107,24 @@ class _Kernels:
             fn.restype = i32
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise where a kernel would be asked for a result that autograd must
+    differentiate: grad mode on and an input requiring a gradient. The
+    kernels have no backward pass, so their output would be cut off from
+    the graph and its gradient silently zero. Every wrapper calls this on
+    a CUDA tensor before it launches; CPU tensors take the plain versions,
+    which autograd differentiates."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward pass, and an input "
+            "requires a gradient; run it under torch.no_grad(), or "
+            "differentiate on the CPU (the plain versions). A backward on "
+            "the card waits for the training slice (ROADMAP.md, Queue 1)")
+
+
 def library(extra: tuple = ()) -> _Kernels:
     """The loaded kernel entry points (built on first call). ``extra``:
     nvcc flags of a second build beside the package's own, such as the

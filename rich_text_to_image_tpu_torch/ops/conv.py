@@ -11,7 +11,8 @@ through an fp32 workspace where the image is small; its tile and the split
 are chosen here (``conv_tile``, ``k_splits``); ``conv3x3_plain`` beside it
 is the JAX kernel's own formulation in PyTorch. The wrapper takes the plain
 version only for a tensor on the CPU; on a CUDA tensor it launches the
-kernel or raises.
+kernel or raises, and it raises under autograd (an input requiring a
+gradient with grad mode on): the kernel has no backward pass.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import functools
 
 import torch
 import torch.nn.functional as F
+
+from .build import refuse_autograd
 
 # one per kernel launch, added by the wrapper right where it launches
 LAUNCHES = {"conv3x3": 0}
@@ -143,6 +146,7 @@ def conv3x3(x, w, b):
                          f"{tuple(w.shape)} are outside the kernel's rules")
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, b)
+    refuse_autograd("conv3x3", x, w, b)
     for name, t in (("x", x), ("w", w), ("b", b)):
         if t.device != x.device:
             raise ValueError("conv3x3: tensors on different devices")

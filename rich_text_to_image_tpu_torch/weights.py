@@ -1,5 +1,6 @@
 """Weights for the port: the bridge from the JAX package's parameter trees,
-a random init, and a reader for local diffusers safetensors directories.
+a random init, and a safetensors reader and writer (local diffusers
+directories, and the port's checkpoints, ``models/checkpoint.py``).
 
 The port's modules carry diffusers' parameter names, so a diffusers state
 dict loads into them as it is. The JAX package names its flax leaves
@@ -31,7 +32,8 @@ _SUFFIX = {"kernel": "weight", "bias": "bias", "scale": "weight",
 def _unet_rule(path: tuple[str, ...]) -> str:
     def tr(p: str) -> str:
         p = re.sub(r"^(down_blocks|up_blocks)_(\d+)$", r"\1.\2", p)
-        return re.sub(r"^(resnets|attentions|transformer_blocks)_(\d+)$",
+        return re.sub(r"^(resnets|attentions|transformers|transformer_blocks)"
+                      r"_(\d+)$",
                       r"\1.\2", p)
 
     name = ".".join(tr(p) for p in path[:-1])
@@ -227,34 +229,68 @@ def random_init_device(module: nn.Module, seed: int) -> nn.Module:
 
 
 # -------------------------------------------------------------- safetensors
-_ST_DTYPES = {"F32": np.float32, "F16": np.float16, "F64": np.float64,
-              "I64": np.int64, "I32": np.int32}
+# safetensors dtype names; a stdlib + torch reader and writer of the format:
+# an 8-byte little-endian header length, a JSON header of {name: {dtype,
+# shape, data_offsets}}, then the raw little-endian tensors
+_ST_DTYPES = {"F64": torch.float64, "F32": torch.float32,
+              "F16": torch.float16, "BF16": torch.bfloat16,
+              "I64": torch.int64, "I32": torch.int32, "I16": torch.int16,
+              "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool}
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
+def read_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """One ``.safetensors`` file as CPU tensors in their stored dtypes."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = f.read()
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        a, b = info["data_offsets"]
+        dtype = _ST_DTYPES[info["dtype"]]
+        if b > a:  # a copy of its own: aligned, writable, freed with it
+            t = torch.frombuffer(bytearray(data[a:b]), dtype=dtype)
+        else:
+            t = torch.empty(0, dtype=dtype)
+        out[name] = t.reshape(info["shape"])
+    return out
+
+
+def save_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> int:
+    """Write ``tensors`` (any device) as one ``.safetensors`` file in their
+    own dtypes, through a temporary file renamed into place; returns the
+    bytes written. No pickle is involved."""
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().to("cpu").contiguous()
+        raw = t.reshape(-1).view(torch.uint8).numpy()
+        header[name] = {"dtype": _ST_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + raw.nbytes]}
+        blobs.append(raw)
+        offset += raw.nbytes
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)  # the data starts 8-byte aligned
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw.data)
+    os.replace(tmp, path)
+    return 8 + len(head) + offset
 
 
 def load_safetensors_dir(path: str) -> dict[str, torch.Tensor]:
-    """Every ``*.safetensors`` file under ``path`` as one float32 state dict
-    (a stdlib + numpy reader of the format: an 8-byte little-endian header
-    length, a JSON header, then the raw tensors)."""
+    """Every ``*.safetensors`` file under ``path`` as one float32 state
+    dict."""
     sd: dict[str, torch.Tensor] = {}
     for fn in sorted(os.listdir(path)):
-        if not fn.endswith(".safetensors"):
-            continue
-        with open(os.path.join(path, fn), "rb") as f:
-            (n,) = struct.unpack("<Q", f.read(8))
-            header = json.loads(f.read(n))
-            data = f.read()
-        for name, info in header.items():
-            if name == "__metadata__":
-                continue
-            a, b = info["data_offsets"]
-            raw = data[a:b]
-            if info["dtype"] == "BF16":
-                u = np.frombuffer(raw, np.uint16).astype(np.uint32) << 16
-                arr = u.view(np.float32)
-            else:
-                arr = np.frombuffer(raw, _ST_DTYPES[info["dtype"]])
-            sd[name] = torch.from_numpy(
-                arr.reshape(info["shape"]).astype(np.float32))
+        if fn.endswith(".safetensors"):
+            sd.update((k, v.float()) for k, v in
+                      read_safetensors(os.path.join(path, fn)).items())
     if not sd:
         raise FileNotFoundError(f"no .safetensors files under {path}")
     return sd

@@ -3,7 +3,7 @@
   * Importing every module of ``rich_text_to_image_tpu_torch`` loads no
     ``jax``/``flax``/``triton`` and no module of the JAX package, and needs
     none of the packages the GPU machine lacks (``regex``, Pillow, imageio,
-    matplotlib).
+    matplotlib, gradio, orbax, safetensors).
   * No source of the port (nor ``chip_smoke.py``) imports them.
   * The kernels' CUDA sources are the files under ``csrc/`` and include
     only the CUDA toolkit's headers and each other; they build into the
@@ -38,7 +38,7 @@ from torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rich_text_to_image_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "flax", "triton", "regex", "PIL", "imageio",
-           "matplotlib")
+           "matplotlib", "gradio", "orbax", "safetensors")
 
 _PROBE = """
 import importlib, pkgutil, sys

@@ -197,12 +197,15 @@ def test_prompt_to_prompt_controls_and_capture_match_jax(which):
 
 
 def test_unported_configs_raise():
-    """SDXL's text_time UNet is ported (tests/test_torch_port_sdxl_models.py);
-    DualTransformer2D, and an added embedding other than text_time, are
-    not."""
-    with pytest.raises(NotImplementedError, match="DualTransformer2D"):
-        T.UNet2DCondition(dataclasses.replace(C.TINY_UNET,
-                                              dual_cross_attention=True))
+    """SDXL's text_time UNet is ported (tests/test_torch_port_sdxl_models.py)
+    and so is DualTransformer2D (tests/test_torch_port_dual_transformer.py):
+    a dual config builds, with two streams in each attention block; an
+    added embedding other than text_time is not ported and raises."""
+    dual = T.UNet2DCondition(dataclasses.replace(C.TINY_UNET,
+                                                 dual_cross_attention=True))
+    names = dual.state_dict()
+    assert any(".attentions.0.transformers.1." in n for n in names)
+    assert not any(".attentions.0.transformer_blocks." in n for n in names)
     with pytest.raises(NotImplementedError, match="text_time"):
         T.UNet2DCondition(dataclasses.replace(C.TINY_XL_UNET,
                                               addition_embed_type="text"))
