@@ -73,6 +73,17 @@ is no CUDA device or the port's package is not beside it. Phases, in order:
      paths ``demo-xl:`` (the same at the SDXL defaults, 1024^2, 4 Euler
      steps). The kernels line adds each one's launches by shape
      (``phase_launches``).
+ 17. the ninth slice's modules, before phase 13: ``mesh1:`` (the 512^2
+     4-step refer-precompute request with ``--mesh 1`` in a world of one,
+     nccl, equal to the run without a mesh to the bit), ``train:`` (three
+     AdamW steps of the training step on SD-1.5 at full width: finite,
+     falling, no hand-written launch), ``mesh2:`` (two ranks spawned on the
+     one card in a gloo group: the same request at dp = 2, each rank's
+     batches halved, and at tp = 2, each rank launching the single-rank
+     run's kernels, images within EVAL_MAX_DIFF; the colour bench's batched
+     item at dp = 2; one training step at dp = 2 against one rank's loss),
+     ``bpe:`` (the native merge loop loaded and equal to Python's) and
+     ``flops:`` (the FLOP counts and the SD-1.5 forward's mfu).
 
 ``--kernels-only`` stops after phase 3 (and the grad guard). The line before the last lists the
 kernels as JSON; the last line is ``{"ok": true, "device": {...}}``. Any
@@ -147,6 +158,18 @@ EVAL_PROMPTS = ["a cat wearing sunglasses", "a red scooter on a street",
 EVAL_BATCHES = (8, 14, 12, 24, 5, 3, 1)
 
 SDXL_SIZE = 1024  # the SDXL CLI's default, a 128^2 latent
+# the multi-device phases: the 512^2 4-step request through the CLI's default
+# refer-precompute flow, on a mesh of one rank (nccl) and of two ranks that
+# share the card (gloo), whose images may move within EVAL_MAX_DIFF (the
+# card's matrix products depend on the batch)
+MESH_ARGV = ["--inject_selfattn", "0.3", "--inject_background", "0.3"]
+MESH2_TIMEOUT = 600  # seconds the two ranks may take, build and init in
+# the training step: SD-1.5 at full width, B = 2 at a 64^2 latent, AdamW at
+# the JAX make_train_step's default lr: at 1e-3 (the JAX test's, at TINY
+# widths) and at 1e-4 Adam's first steps raised the full-width loss on one
+# batch and draw in trial runs on the H100
+TRAIN_LR, TRAIN_B, TRAIN_STEPS = 1e-5, 2, 3
+TRAIN_LOSS_RTOL = 2e-2  # the dp = 2 step's loss against one rank's (bf16)
 # the demo's request: an example of cli/examples.py with a footnote, a
 # coloured span and a font size; its 3 span regions make the rich batch
 # R+2 = 5 (the refer-precompute flow, which the demo's default background
@@ -346,6 +369,9 @@ ATTN_CASES = [
     ("K2_attn_fwd_32x32", "fwd", 1, 8, 520, 80, "full_t", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 8, 1024, 80, "avgp", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 8, 1000, 80, "avgp", {}),
+    # a dp = 2 rank's plain-pass capture (mesh2:)
+    ("K3_attn_avgp_32x32", "avgp", 1, 8, 1024, 80, "avgp", {}),
+    ("K3_attn_avgp_32x32", "avgp", 1, 8, 1000, 80, "avgp", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 8, 2304, 80, "avgp", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 8, 576, 160, "avgp", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 8, 1024, 160, "avgp", {}),
@@ -626,8 +652,9 @@ def conv_kernel_phase() -> tuple:
     return {"K5_conv3x3": row}, times
 
 
-def unet_phase(pipe) -> None:
-    """One full-width CFG forward with capture, kernels vs plain attention."""
+def unet_phase(pipe) -> float:
+    """One full-width CFG forward with capture, kernels vs plain attention;
+    returns the forward's ms without capture."""
     import torch
 
     from rich_text_to_image_tpu_torch.models.unet import CaptureSpec
@@ -658,12 +685,16 @@ def unet_phase(pipe) -> None:
                  / aux_p["self_probs"][n].abs().max()).item()
                 for n in self_layers)
     fin = bool(torch.isfinite(eps_k).all())
+    with torch.no_grad():
+        fwd_ms = _time_ms(lambda: pipe.unet(x, 500, ctx), 10)
     print(f"unet: eps {tuple(eps_k.shape)} rel max|d|={e_err:.3e}, self_probs "
           f"rel max|d|={p_err:.3e} (tol {UNET_RTOL}), finite={fin}, "
-          f"launches {launched}", flush=True)
+          f"launches {launched}; forward without capture {fwd_ms:.3f} ms",
+          flush=True)
     if not fin or e_err > UNET_RTOL or p_err > UNET_RTOL:
         raise AssertionError("UNet through the kernels disagrees with the "
                              "plain attention")
+    return fwd_ms
 
 
 @contextlib.contextmanager
@@ -1098,18 +1129,18 @@ def _expect_by_shape(tag: str, got: dict, seen: list, captures: int = 0):
     _expect_shapes(tag, got, _sd_launches(seen, captures))
 
 
-def _sd_launches(seen: list, captures: int = 0) -> dict:
+def _sd_launches(seen: list, captures: int = 0, capture_b: int = 2) -> dict:
     """The SD-1.5 512^2 launches of the UNet forwards of batches ``seen``:
     5 K1 at 64^2 and 5 K2 at 32^2 each, but for ``captures`` plain-pass
-    capture steps at batch 2, whose 5 32^2 layers take K3."""
+    capture steps at batch ``capture_b``, whose 5 32^2 layers take K3."""
     want: dict = {}
     for b in seen:
         for key in (("full", b, 8, 4096, 4096, 48),
                     ("full_t", b, 8, 1024, 1024, 80)):
             want[key] = want.get(key, 0) + 5
     if captures:
-        want[("full_t", 2, 8, 1024, 1024, 80)] -= 5 * captures
-        want[("avgp", 2, 8, 1024, 1024, 80)] = 5 * captures
+        want[("full_t", capture_b, 8, 1024, 1024, 80)] -= 5 * captures
+        want[("avgp", capture_b, 8, 1024, 1024, 80)] = 5 * captures
     return want
 
 
@@ -1857,6 +1888,363 @@ def lora_phase(pipe, out_dir: str, ckpt: str, rows: dict) -> None:
     _record_phase(rows, "ckpt", runs["lora-restored"][1])
 
 
+def mesh1_phase(pipe, out_dir: str) -> tuple:
+    """The 512^2 4-step refer-precompute request through the CLI's code
+    path without a mesh, then with ``--mesh 1`` in a world of one process
+    (nccl): the gathers over one rank change nothing, so the rich image and
+    the launches by shape must be equal to the bit (cuDNN deterministic, as
+    in ``lora:``). Returns (the launches by shape of the run without a
+    mesh, the path of its rich PNG) for ``mesh2:``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.parallel.mesh import apply_mesh_arg
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for tag in ("mesh1-off", "mesh1"):
+            if tag == "mesh1":
+                apply_mesh_arg(pipe, "1")
+                backend, shape = dist.get_backend(), dict(pipe.mesh.shape)
+            try:
+                _, secs, _, rich, _ = sample_phase(
+                    tag, pipe, os.path.join(out_dir, tag), 512, STEPS_SHORT,
+                    MESH_ARGV, agg_start=1)
+            finally:
+                if tag == "mesh1":
+                    pipe.mesh = None
+                    dist.destroy_process_group()
+            runs[tag] = (rich, dict(A.LAUNCHES_BY_SHAPE), secs)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    ref, ref_shapes, _ = runs["mesh1-off"]
+    got, shapes, secs = runs["mesh1"]
+    equal = bool(np.array_equal(got, ref))
+    print(f"mesh1: --mesh 1 in a world of one ({backend}), mesh {shape}: rich "
+          f"image equal to the run without a mesh: {equal}; launches by "
+          f"shape equal: {shapes == ref_shapes}; stage seconds "
+          f"{json.dumps(secs)}", flush=True)
+    if not equal or shapes != ref_shapes:
+        raise AssertionError("mesh1: a mesh of one rank changed the run")
+    return ref_shapes, os.path.join(out_dir, "mesh1-off", "seed6_rich.png")
+
+
+def _train_batch():
+    """The training phases' batch: latents [TRAIN_B,64,64,4] and text rows
+    [TRAIN_B,77,768], from a seeded generator on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    return (torch.randn((TRAIN_B, 64, 64, 4), generator=g, device="cuda"),
+            torch.randn((TRAIN_B, 77, 768), generator=g, device="cuda"))
+
+
+def _train_steps(mesh, steps: int, lr: float = TRAIN_LR) -> tuple:
+    """``steps`` AdamW steps of ``make_train_step`` (SD-1.5, bfloat16
+    autocast, float32 parameters drawn on the card from seed 0) on the
+    training batch, every step with the same draw of t and the noise (seed
+    100), so that the losses are of one objective: (losses, ms per step,
+    peak device bytes, launches of the hand-written kernels by name and by
+    shape)."""
+    import torch
+
+    from rich_text_to_image_tpu_torch.models import config as cfgs
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.ops import conv as CV
+    from rich_text_to_image_tpu_torch.training.train_step import (
+        make_train_step)
+
+    init_fn, step = make_train_step(cfgs.SD15_UNET, learning_rate=lr,
+                                    dtype=torch.bfloat16, mesh=mesh,
+                                    device="cuda")
+    state = init_fn(seed=0)
+    latents, ehs = _train_batch()
+    A.reset_launches()
+    CV.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(steps):
+        gen = torch.Generator(device="cuda").manual_seed(100)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, latents, ehs, gen)
+        losses.append(float(loss))  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    launches = ({**A.LAUNCHES, **CV.LAUNCHES}, dict(A.LAUNCHES_BY_SHAPE))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, ms, peak, launches
+
+
+def train_phase() -> float:
+    """Three steps of the training step on one card: the loss must be
+    finite and fall, and no hand-written kernel may launch (attention runs
+    through the plain ops under autograd). Returns the first step's loss,
+    which ``mesh2:``'s dp = 2 step must match."""
+    import numpy as np
+
+    losses, ms, peak, (launches, _) = _train_steps(None, TRAIN_STEPS)
+    print(f"train: SD-1.5 UNet at full width, float32 parameters, bfloat16 "
+          f"autocast, latents [{TRAIN_B},64,64,4], AdamW lr {TRAIN_LR}: "
+          f"losses {losses}, ms per step {[round(m, 1) for m in ms]} (the "
+          f"first with the optimizer's state made), peak device memory "
+          f"{peak} bytes ({peak / 2**30:.2f} GiB), hand-written kernel "
+          f"launches {launches}", flush=True)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses} are not finite and "
+                             "falling")
+    if any(launches.values()):
+        raise AssertionError("train: a hand-written kernel launched under "
+                             "autograd")
+    return losses[0]
+
+
+def _mesh2_rank(rank: int, store: str, out_dir: str, spec: dict) -> None:
+    """One of two ranks on the one card, in a gloo group (nccl refuses two
+    ranks on one device; the collectives move the card's tensors through
+    host memory): the mesh1 request at dp = 2 and at tp = 2, the colour
+    bench's batched item at dp = 2, then one training step at dp = 2. Its
+    results go to ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, spec["root"])
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=2)
+    try:
+        from rich_text_to_image_tpu_torch.evaluation import (
+            benchmark_color as BC)
+        from rich_text_to_image_tpu_torch.ops import attention as A
+        from rich_text_to_image_tpu_torch.ops import build
+        from rich_text_to_image_tpu_torch.parallel.mesh import mesh_from_spec
+        from rich_text_to_image_tpu_torch.pipelines.region_sd import (
+            RegionDiffusion)
+        from rich_text_to_image_tpu_torch.utils.png import read_png
+
+        build.library()  # the parent built it: loaded, not compiled
+        ref = read_png(spec["ref_png"])[None]
+        res = {"backend": dist.get_backend()}
+        for tag, mesh in (("mesh2-dp", "2,1"), ("mesh2-tp", "1,2")):
+            t0 = time.time()
+            pipe = RegionDiffusion.random_init(seed=0, device="cuda",
+                                               mesh=mesh_from_spec(mesh))
+            init_s = time.time() - t0
+            (_, secs, _, rich, _), seen = _batches(pipe, lambda: sample_phase(
+                f"{tag} rank {rank}", pipe,
+                os.path.join(out_dir, tag, f"rank{rank}"), 512, STEPS_SHORT,
+                MESH_ARGV, agg_start=1))
+            res[tag] = {"by_shape": _keyed(A.LAUNCHES_BY_SHAPE),
+                        "seen": seen, "seconds": secs, "init_s": init_s,
+                        "image_diff": _image_diff(rich, ref),
+                        "mesh": dict(pipe.mesh.shape)}
+            if tag == "mesh2-dp":
+                path = os.path.join(out_dir, "colorbench")
+                args = BC.make_parser().parse_args(
+                    ["--steps", str(STEPS_SHORT), "--num_seeds", "1",
+                     "--limit", "4", "--batch_colors", "4", "--save_img",
+                     "--save_path", path, "--mesh", mesh])
+                with _agg_start(pipe, 1):
+                    (summary, seen), secs = _timed(lambda: _batches(
+                        pipe, lambda: BC.run(args, model=pipe)))
+                res["colorbench"] = {"seen": seen, "seconds": secs,
+                                     "n": summary["ours_min"]["n"]}
+            del pipe
+            gc.collect()
+            torch.cuda.empty_cache()
+        losses, ms, peak, (launches, _) = _train_steps(
+            mesh_from_spec("2,1"), 1)
+        res["train"] = {"losses": losses, "ms": ms, "peak": peak,
+                        "launches": launches,
+                        "finite": bool(np.isfinite(losses).all())}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _shape_key(key: str) -> tuple:
+    bucket, *dims = key.split(",")
+    return (bucket, *map(int, dims))
+
+
+def mesh2_phase(out_dir: str, ref_png: str, ref_shapes: dict,
+                bench_dir: str, train_loss: float, rows: dict) -> None:
+    """Two ranks spawned on the one card (``_mesh2_rank``): at dp = 2 each
+    rank's K1/K2 batches halve (plain pass B = 1, its capture's K3 at
+    B = 1, rich pass B = 2), at tp = 2 each launches exactly the
+    single-rank run's kernels (every layer's output is gathered whole);
+    the images within EVAL_MAX_DIFF of the single-rank image; the colour
+    bench's batched item at dp = 2 within EVAL_MAX_DIFF of ``colorbench:``'s
+    images; the dp = 2 training step's loss within TRAIN_LOSS_RTOL of one
+    rank's first step."""
+    import shutil
+
+    import torch.multiprocessing as mp
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    store = os.path.abspath(os.path.join(out_dir, "store"))  # file:// URL
+    spec = {"root": os.path.dirname(os.path.abspath(__file__)),
+            "ref_png": ref_png}
+    t0 = time.time()
+    ctx = mp.start_processes(_mesh2_rank, args=(store, out_dir, spec),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() - t0 > MESH2_TIMEOUT:
+                raise AssertionError(f"mesh2: the two ranks took more than "
+                                     f"{MESH2_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    wall = time.time() - t0
+    res = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    from rich_text_to_image_tpu_torch.schedulers.pndm import PNDMScheduler
+
+    calls = PNDMScheduler().plan(STEPS_SHORT).num_steps
+    want = {"mesh2-dp": _sd_launches([1] * calls + [2] * calls, captures=1,
+                                     capture_b=1),
+            "mesh2-tp": ref_shapes}
+    for tag, what in (("mesh2-dp", "dp = 2: each rank's batches halve"),
+                      ("mesh2-tp", "tp = 2: each rank launches the "
+                                   "single-rank run's kernels")):
+        got = [{_shape_key(k): n for k, n in r[tag]["by_shape"].items()}
+               for r in res]
+        diffs = [r[tag]["image_diff"] for r in res]
+        print(f"mesh2: {what}; mesh {res[0][tag]['mesh']} ({res[0]['backend']}"
+              f", 2 ranks on one card); UNet batches rank 0 "
+              f"{_runs(res[0][tag]['seen'])}, rank 1 "
+              f"{_runs(res[1][tag]['seen'])}; launches by (bucket, B, H, Sq, "
+              f"Skv, head dim) rank 0 {json.dumps(res[0][tag]['by_shape'])}, "
+              f"rank 1 {json.dumps(res[1][tag]['by_shape'])}; mean |image "
+              f"difference| against the single-rank image {diffs} (bound "
+              f"{EVAL_MAX_DIFF}); stage seconds rank 0 "
+              f"{json.dumps(res[0][tag]['seconds'])}; pipeline init "
+              f"{[round(r[tag]['init_s'], 1) for r in res]} s", flush=True)
+        for g in got:
+            _expect_shapes(tag, g, want[tag])
+        if max(diffs) > EVAL_MAX_DIFF:
+            raise AssertionError(f"{tag}: images too far from the "
+                                 f"single-rank one: {diffs}")
+        _record_phase(rows, tag, got[0])
+    means, maxes = _saved_diffs("mesh2-colorbench",
+                                os.path.join(out_dir, "colorbench"),
+                                bench_dir)
+    cb = res[0]["colorbench"]
+    print(f"mesh2: colour bench --mesh 2,1, one batched item of 4 colours: "
+          f"UNet batches rank 0 {_runs(cb['seen'])}, rank 1 "
+          f"{_runs(res[1]['colorbench']['seen'])}; {cb['seconds']:.3f} s; "
+          f"saved images against colorbench:'s batched ones, mean |image "
+          f"difference| {[round(m, 4) for m in means]} (bound "
+          f"{EVAL_MAX_DIFF}), max {maxes} uint8 steps", flush=True)
+    if cb["n"] != 4:
+        raise AssertionError(f"mesh2: colour bench scored {cb['n']} items")
+    tr = [r["train"] for r in res]
+    rel = abs(tr[0]["losses"][0] - train_loss) / abs(train_loss)
+    print(f"train: dp = 2 on the two ranks of mesh2:, one step: loss "
+          f"{[t['losses'][0] for t in tr]} against one rank's {train_loss} "
+          f"(relative difference {rel:.3e}, bound {TRAIN_LOSS_RTOL}); ms "
+          f"{[round(t['ms'][0], 1) for t in tr]}; peak device memory "
+          f"{[t['peak'] for t in tr]} bytes; hand-written kernel launches "
+          f"{tr[0]['launches']}; mesh2 wall {wall:.1f} s", flush=True)
+    if (not all(t["finite"] for t in tr) or rel > TRAIN_LOSS_RTOL
+            or tr[0]["losses"] != tr[1]["losses"]
+            or any(any(t["launches"].values()) for t in tr)):
+        raise AssertionError("train: the dp = 2 step disagrees")
+
+
+def bpe_phase() -> None:
+    """The native merge loop (``native/bpe.cpp``, built with g++ at first
+    use) must load on this machine and give the Python loop's merges on a
+    random merge table; µs a word for both, host clock."""
+    import random
+
+    from rich_text_to_image_tpu_torch import native
+    from rich_text_to_image_tpu_torch.models.tokenizer import (
+        CLIPTokenizer, bytes_to_unicode)
+
+    t0 = time.time()
+    if native.load_bpe_lib() is None:
+        raise AssertionError(f"bpe: the native library did not load: "
+                             f"{native.load_error()}")
+    load_s = time.time() - t0
+    rng = random.Random(0)
+    letters = [chr(c) for c in range(ord("a"), ord("z") + 1)]
+    symbols = letters + [c + "</w>" for c in letters]
+    merges = []
+    while len(merges) < 2000:
+        a, b = rng.choice(symbols), rng.choice(symbols)
+        if (a, b) not in merges and not a.endswith("</w>"):
+            merges.append((a, b))
+            if not b.endswith("</w>"):
+                symbols.append(a + b)
+    units = list(bytes_to_unicode().values())
+    vocab = {u: i for i, u in enumerate(units + [u + "</w>" for u in units])}
+    for m in merges:
+        vocab.setdefault("".join(m), len(vocab))
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    words = ["".join(rng.choice(letters) for _ in range(rng.randint(1, 14)))
+             for _ in range(5000)]
+    out, us = {}, {}
+    for native_on in (True, False):
+        tok = CLIPTokenizer(vocab, merges, use_native=native_on)
+        if (tok._native is not None) != native_on:
+            raise AssertionError("bpe: the tokenizer took the wrong loop")
+        t0 = time.perf_counter()
+        out[native_on] = [tok._bpe(w) for w in words]  # each word once
+        us[native_on] = (time.perf_counter() - t0) / len(words) * 1e6
+    equal = out[True] == out[False]
+    print(f"bpe: native library {os.path.basename(native.lib_path())} loaded "
+          f"({load_s:.2f} s with the build); {len(words)} random words over "
+          f"{len(merges)} random merges: merges equal to the Python loop's: "
+          f"{equal}; native {us[True]:.2f} us a word, Python "
+          f"{us[False]:.2f} us a word (host clock)", flush=True)
+    if not equal:
+        raise AssertionError("bpe: native and Python merges differ")
+
+
+def flops_phase(pipe, unet_ms: float) -> None:
+    """``utils.flops.unet_fwd_flops`` of SD-1.5 and SDXL at B = 2 (meta
+    device: nothing runs), and the SD-1.5 forward's share of the card's
+    dense bf16 peak from ``unet:``'s measured forward."""
+    import types
+
+    import torch
+
+    from rich_text_to_image_tpu_torch.models import config as cfgs
+    from rich_text_to_image_tpu_torch.utils import flops as F
+
+    t0 = time.time()
+    sd = F.unet_fwd_flops(pipe, 2, False)
+    xl = F.unet_fwd_flops(types.SimpleNamespace(
+        unet_cfg=cfgs.SDXL_UNET,
+        unet=types.SimpleNamespace(dtype=torch.bfloat16)), 2, True)
+    count_s = time.time() - t0
+    peak, kind = F.peak_flops()
+    rate = sd / (unet_ms * 1e-3)
+    mfu = rate / peak if peak else None
+    print(f"flops: unet_fwd_flops (FlopCounterMode on the meta device, "
+          f"products only) SD-1.5 B=2 {sd:.6e}, SDXL B=2 {xl:.6e}, counted "
+          f"in {count_s:.1f} s; SD-1.5 forward {unet_ms:.3f} ms (unet:) -> "
+          f"{rate / 1e12:.2f} TFLOP/s, mfu {mfu} of the {kind} peak "
+          f"{peak}", flush=True)
+    if not sd > 0 or not xl > sd:
+        raise AssertionError(f"flops: counts {sd}, {xl}")
+
+
 def _demo_request(kind: str):
     """(``APP_DEFAULTS[kind]``, ``DEMO_EXAMPLE`` as the demo's JSON string,
     its span regions R)."""
@@ -2014,7 +2402,7 @@ def main(kernels_only: bool = False) -> int:
     torch.cuda.synchronize()
     print(f"init: full-width SD-1.5 pipeline, random weights, "
           f"{time.time() - t0:.1f} s", flush=True)
-    unet_phase(pipe)
+    unet_ms = unet_phase(pipe)
     _record_phase(rows, "dual", dual_phase(pipe))
     out = os.path.join(root, "results", "chip_smoke")
 
@@ -2118,6 +2506,19 @@ def main(kernels_only: bool = False) -> int:
     _record_phase(rows, "demo", demo_phase(
         "demo", pipe, "SD", STEPS, os.path.join(out, "demo"),
         os.path.join(out, "trace", "demo"), _demo_sd_launches))
+
+    # this slice's phases: multiple devices, training, the native tokenizer
+    # and the FLOP count
+    ref_shapes, ref_png = mesh1_phase(pipe, os.path.join(out, "mesh1"))
+    train_loss = train_phase()
+    mesh2_phase(os.path.join(out, "mesh2"), ref_png, ref_shapes,
+                os.path.join(out, "colorbench", "batch_colors_4"),
+                train_loss, rows)
+    for name in ("K1_attn_fwd_64x64", "K2_attn_fwd_32x32",
+                 "K3_attn_avgp_32x32"):
+        rows[name].setdefault("phase_launches", {})["train"] = {}
+    bpe_phase()
+    flops_phase(pipe, unet_ms)
 
     profile_phase(pipe, breakdown_phase(pipe))
 

@@ -13,8 +13,12 @@ segmentation figure and the token-map figure.
 ``run_generate`` is the whole request as a function, testable without
 gradio or a browser; ``build_app``'s click callback wraps it and maps
 ``error_cls`` to ``gr.Error``. gradio is imported only inside
-``build_app``: the module imports without it. ``--mesh`` exits, as the
-CLI's does, until multi-GPU runs are ported (ROADMAP.md, Queue 1).
+``build_app``: the module imports without it.
+
+``--mesh`` places the serving pipeline on a device mesh, one process per
+device under ``torchrun``: rank 0 serves the app and hands each request to
+the other ranks (:func:`send_request`), which run it beside it in
+:func:`follow_requests` until a ``None`` request ends them.
 """
 
 from __future__ import annotations
@@ -122,10 +126,34 @@ def run_generate(model, resolution, text_input, negative_prompt, seed, steps,
     return [plain[0], rich[0], seg_vis, tok_vis]
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise SystemExit("--mesh: not ported to PyTorch yet (multi-GPU runs "
-                         "are a later slice; ROADMAP.md, Queue 1)")
+def send_request(request) -> None:
+    """Rank 0 hands a request's ``run_generate`` arguments (after the
+    model and the resolution) to the other ranks; ``None`` ends their
+    loops."""
+    import torch.distributed as dist
+
+    dist.broadcast_object_list([request], src=0)
+
+
+def follow_requests(model, resolution, vis_dir: str) -> int:
+    """On every rank but 0 of a mesh: run each request rank 0 sends
+    through the same ``run_generate`` (the collectives of its UNet calls
+    pair with rank 0's), until a ``None`` request; returns how many ran. A
+    request that rank 0 turns away as invalid is turned away here too,
+    before any collective."""
+    import torch.distributed as dist
+
+    served = 0
+    while True:
+        box = [None]
+        dist.broadcast_object_list(box, src=0)
+        if box[0] is None:
+            return served
+        try:
+            run_generate(model, resolution, *box[0], vis_dir=vis_dir)
+        except ValueError:
+            continue
+        served += 1
 
 
 def build_app(model_kind: str = "SD", checkpoint_dir: str | None = None,
@@ -136,8 +164,21 @@ def build_app(model_kind: str = "SD", checkpoint_dir: str | None = None,
     of ``model_kind``, the example banks, the share button and the
     generate button's click binding. ``model`` and ``resolution`` take a
     pipeline built elsewhere and another output size (the tests' tiny
-    pipeline); otherwise the pipeline is built as the CLI builds it."""
-    _refuse_mesh(mesh)
+    pipeline); otherwise the pipeline is built as the CLI builds it.
+    ``mesh`` takes the CLI's ``--mesh`` grammar and places the serving
+    pipeline on that mesh; each click then sends its request to the other
+    ranks before it runs."""
+    from .sample import build_model
+
+    if model is None:
+        model = build_model(argparse.Namespace(
+            model=model_kind, checkpoint_dir=checkpoint_dir,
+            random_weights=random_weights, device=device, scheduler=None,
+            bf16_vae=False, mesh=mesh))
+    elif mesh:
+        from ..parallel.mesh import apply_mesh_arg
+
+        apply_mesh_arg(model, mesh)
     try:
         import gradio as gr
     except ImportError as e:
@@ -148,13 +189,6 @@ def build_app(model_kind: str = "SD", checkpoint_dir: str | None = None,
     from .examples import APP_DEFAULTS, example_rows
     from .share_button import COMMUNITY_JS, SHARE_BUTTON_CSS
 
-    if model is None:
-        from .sample import build_model
-
-        model = build_model(argparse.Namespace(
-            model=model_kind, checkpoint_dir=checkpoint_dir,
-            random_weights=random_weights, device=device, scheduler=None,
-            bf16_vae=False))
     d = APP_DEFAULTS[model_kind]
     default_res = resolution or d["resolution"]
 
@@ -162,12 +196,14 @@ def build_app(model_kind: str = "SD", checkpoint_dir: str | None = None,
                  color_guidance_weight, inject_selfattn, inject_background,
                  segment_threshold, num_segments, encoder_reuse=1,
                  guidance_downsample=1, ref_precompute=True):
-        return run_generate(
-            model, default_res, text_input, negative_prompt, seed, steps,
-            guidance_weight, color_guidance_weight, inject_selfattn,
-            inject_background, segment_threshold, num_segments,
-            encoder_reuse, guidance_downsample, ref_precompute,
-            error_cls=gr.Error)
+        request = (text_input, negative_prompt, seed, steps,
+                   guidance_weight, color_guidance_weight, inject_selfattn,
+                   inject_background, segment_threshold, num_segments,
+                   encoder_reuse, guidance_downsample, ref_precompute)
+        if model.mesh is not None:
+            send_request(request)
+        return run_generate(model, default_res, *request,
+                            error_cls=gr.Error)
 
     with open(os.path.join(os.path.dirname(__file__), "editor.html"),
               encoding="utf-8") as fp:
@@ -241,15 +277,37 @@ def make_parser():
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda)")
     p.add_argument("--port", type=int, default=7860)
-    p.add_argument("--mesh", default=None)  # exits unless off
+    p.add_argument("--mesh", default=None,
+                   help="device mesh, one process per device (torchrun): "
+                        "'auto', N, dp,tp or dcn,dp,tp")
     return p
 
 
 def main(argv=None):
+    import torch.distributed as dist
+
+    from ..parallel.mesh import world_scope
+    from .examples import APP_DEFAULTS
+    from .sample import build_model
+
     a = make_parser().parse_args(argv)
-    app = build_app(a.model, a.checkpoint_dir, a.random_weights,
-                    mesh=a.mesh, device=a.device)
-    app.queue(max_size=4).launch(server_port=a.port)
+    with world_scope():
+        model = build_model(argparse.Namespace(
+            model=a.model, checkpoint_dir=a.checkpoint_dir,
+            random_weights=a.random_weights, device=a.device, scheduler=None,
+            bf16_vae=False, mesh=a.mesh))
+        if model.mesh is not None and dist.get_rank() != 0:
+            follow_requests(model, APP_DEFAULTS[a.model]["resolution"],
+                            os.path.join("results", "gradio_vis",
+                                         f"rank{dist.get_rank()}"))
+            return
+        try:
+            app = build_app(a.model, a.checkpoint_dir, a.random_weights,
+                            model=model)
+            app.queue(max_size=4).launch(server_port=a.port)
+        finally:
+            if model.mesh is not None:
+                send_request(None)
 
 
 if __name__ == "__main__":

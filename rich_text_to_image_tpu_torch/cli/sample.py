@@ -21,8 +21,19 @@ Images are written as PNG, and every run writes the segmentation and
 token-map figures beside them; ``--save_attn`` also writes the aggregated
 attention maps under ``maps/``. ``--bf16_vae`` decodes SDXL's images in
 bfloat16 (the SD branch does not read it, as in the JAX CLI). The CLI
-refuses ``--mesh`` (not ported yet) and ``--model SD --scheduler euler``,
-whose rich pass fails in the JAX package.
+refuses ``--model SD --scheduler euler``, whose rich pass fails in the JAX
+package.
+
+``--mesh`` (``auto``, ``N``, ``dp,tp``, ``dcn,dp,tp``; ``parallel/mesh.py``)
+runs one process per device, as ``torchrun`` starts them:
+
+    torchrun --nproc_per_node 2 -m rich_text_to_image_tpu_torch.cli.sample \
+        --random_weights --mesh 2,1
+
+Every rank runs the request; the UNet's rows split over dp and its weights
+over tp, and rank 0 writes the files. As in the JAX grammar, ``N`` alone
+picks tp as 4 or 2 where it divides: ``--mesh 2`` is (dp, tp) = (1, 2),
+``2,1`` is dp = 2.
 """
 
 from __future__ import annotations
@@ -57,10 +68,15 @@ def make_scheduler(name):
 def build_model(args):
     """The pipeline of ``--model``: RegionDiffusion for SD,
     RegionDiffusionXL for SDXL and AnimeXL (its VAE decode in bfloat16 with
-    ``--bf16_vae``), on ``--device``."""
+    ``--bf16_vae``), on ``--device``, placed on the ``--mesh``."""
     import torch
 
-    kw = dict(device=args.device, scheduler=make_scheduler(args.scheduler))
+    from ..parallel.mesh import mesh_from_spec
+
+    # the world, and this rank's card, before the weights are placed
+    mesh = mesh_from_spec(getattr(args, "mesh", None))
+    kw = dict(device=args.device, scheduler=make_scheduler(args.scheduler),
+              mesh=mesh)
     if args.model == "SD":
         from ..pipelines.region_sd import RegionDiffusion as cls
         what = "SD-1.5"
@@ -195,9 +211,6 @@ def check_args(args) -> None:
             "with its float timesteps: IndexError), and the port refuses it "
             "likewise (ROADMAP.md, Queue 3); use pndm, ddim or dpm (SDXL's "
             "rich pass runs under Euler)")
-    if args.mesh is not None:
-        raise SystemExit("--mesh: not ported to PyTorch yet (multi-GPU runs "
-                         "are a later slice; ROADMAP.md, Queue 1)")
 
 
 def make_parser():
@@ -230,7 +243,9 @@ def make_parser():
     p.add_argument("--no_ref_precompute", action="store_true")
     p.add_argument("--guidance_downsample", type=int, default=1)
     p.add_argument("--encoder_reuse", type=int, default=1)
-    p.add_argument("--mesh", type=str, default=None)  # exits unless off
+    p.add_argument("--mesh", type=str, default=None,
+                   help="device mesh, one process per device (torchrun): "
+                        "'auto', N, dp,tp or dcn,dp,tp")
     p.add_argument("--encoder_schedule", choices=["early", "uniform"],
                    default="early")
     return p
@@ -249,7 +264,11 @@ def main(argv=None):
         "noise_index": args.seed,
         "negative_prompt": args.negative_prompt,
     }
-    run_sample(build_model(args), args, param)
+    from ..parallel.mesh import is_main_rank, world_scope
+
+    with world_scope():
+        model = build_model(args)
+        run_sample(model, args, param, save=is_main_rank())
 
 
 if __name__ == "__main__":

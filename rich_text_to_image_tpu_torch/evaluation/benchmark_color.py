@@ -12,6 +12,10 @@ seed, shared by all colours (reference :194), drawn by
 
     python -m rich_text_to_image_tpu_torch.evaluation.benchmark_color \\
         --random_weights --steps 4 --limit 4 --num_seeds 1 --batch_colors 4
+
+With ``--mesh`` under ``torchrun`` (one process per device) the pipeline is
+placed on the mesh and each batched item's UNet rows split over dp inside
+``color_bench_batch``; rank 0 writes the images and the summary.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.resize import resize_bicubic
+from ..parallel.mesh import is_main_rank
 from ..pipelines import region_sd
 from ..utils.colors import find_nearest_color
 from ..utils.png import read_png, write_png
@@ -64,7 +69,8 @@ def make_parser():
                    help="bfloat16 colour-guidance VAE gradient. Default "
                         "keeps the reference's fp32")
     p.add_argument("--mesh", type=str, default=None,
-                   help="multi-device runs: not ported (exits)")
+                   help="device mesh, one process per device (torchrun): "
+                        "'auto', N, dp,tp or dcn,dp,tp")
     p.add_argument("--device", default="cuda",
                    help="torch device of the run (default cuda)")
     return p
@@ -81,10 +87,18 @@ def load_model(args):
     return RegionDiffusion.random_init(seed=0, device=args.device)
 
 
-def check_mesh(args) -> None:
-    if getattr(args, "mesh", None):
-        raise SystemExit("--mesh: not ported to PyTorch yet (multi-GPU runs "
-                         "are ROADMAP.md Queue 1 #8); run on one device")
+def place_model(args, model=None):
+    """The run's pipeline — ``model``, or :func:`load_model`'s — on the
+    ``--mesh`` (the world, and this rank's card, are set up before the
+    weights are loaded)."""
+    from ..parallel.mesh import mesh_from_spec
+
+    mesh = mesh_from_spec(getattr(args, "mesh", None))
+    if model is None:
+        model = load_model(args)
+    if mesh is not None:
+        model.use_mesh(mesh)
+    return model
 
 
 def region_mask_px(mask: np.ndarray, height: int, width: int) -> np.ndarray:
@@ -96,9 +110,8 @@ def region_mask_px(mask: np.ndarray, height: int, width: int) -> np.ndarray:
 
 
 def run(args, model=None):
-    check_mesh(args)
-    if model is None:
-        model = load_model(args)
+    model = place_model(args, model)
+    main_rank = is_main_rank()
     p2p = None
     if args.with_p2p:
         from ..pipelines.prompt_to_prompt import PromptToPromptPipeline
@@ -200,7 +213,7 @@ def run(args, model=None):
                                              color_name)
                     stats["p2p_min"].add(mn)
                     stats["p2p_avg"].add(av)
-                if args.save_img and not args.load_previous:
+                if args.save_img and not args.load_previous and main_rank:
                     write_png(ours_name, img_ours[0])
             print(f"Min dis. N: {len(stats['ours_min'])}, "
                   f"plain: {stats['plain_min'].fmt()}, "
@@ -216,8 +229,9 @@ def run(args, model=None):
     summary = {k: {"mean": s.mean, "std": s.std, "n": len(s)}
                for k, s in stats.items()}
     summary["config"] = config_of(args)
-    with open(os.path.join(args.save_path, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
+    if main_rank:
+        with open(os.path.join(args.save_path, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
     return summary
 
 
@@ -235,7 +249,10 @@ def _token_ids(tokenizer, base_prompt: str, span: str) -> np.ndarray:
 
 
 def main(argv=None):
-    run(make_parser().parse_args(argv))
+    from ..parallel.mesh import world_scope
+
+    with world_scope():
+        run(make_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

@@ -20,9 +20,10 @@ import os
 import numpy as np
 
 from ..pipelines import region_sd
+from ..parallel.mesh import is_main_rank
 from ..utils.png import read_png, write_png
 from ..utils.token_maps import get_token_maps
-from .benchmark_color import check_mesh, config_of, load_model, region_mask_px
+from .benchmark_color import config_of, place_model, region_mask_px
 from .metrics import RunningStats, compose_region
 from .suites import (GUIDANCE_SCALE, NUM_DIFFUSION_STEPS, STYLE_REGIONS,
                      STYLE_SCENES, STYLES)
@@ -49,7 +50,8 @@ def make_parser():
                         "(RegionDiffusion.style_bench_batch). 1 = the "
                         "reference's sequential loop")
     p.add_argument("--mesh", type=str, default=None,
-                   help="multi-device runs: not ported (exits)")
+                   help="device mesh, one process per device (torchrun): "
+                        "'auto', N, dp,tp or dcn,dp,tp")
     p.add_argument("--device", default="cuda",
                    help="torch device of the run (default cuda)")
     return p
@@ -80,9 +82,8 @@ def _resolve_scorer(args, model, scorer):
 
 
 def run(args, model=None, scorer=None):
-    check_mesh(args)
-    if model is None:
-        model = load_model(args)
+    model = place_model(args, model)
+    main_rank = is_main_rank()
     scorer, scorer_is_random = _resolve_scorer(args, model, scorer)
     p2p = None
     if args.with_p2p:
@@ -155,7 +156,7 @@ def run(args, model=None, scorer=None):
                             num_inference_steps=args.steps,
                             guidance_scale=GUIDANCE_SCALE, latents=latent,
                             use_guidance=False, seed=seed)
-                    if args.save_img:
+                    if args.save_img and main_rank:
                         write_png(ours_name, img[0])
                 img_p2p = None
                 if p2p is not None:
@@ -191,13 +192,17 @@ def run(args, model=None, scorer=None):
         "clip_scores_random_weights": scorer_is_random,
         "config": config_of(args),
     }
-    with open(os.path.join(args.save_path, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
+    if main_rank:
+        with open(os.path.join(args.save_path, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
     return summary
 
 
 def main(argv=None):
-    run(make_parser().parse_args(argv))
+    from ..parallel.mesh import world_scope
+
+    with world_scope():
+        run(make_parser().parse_args(argv))
 
 
 if __name__ == "__main__":

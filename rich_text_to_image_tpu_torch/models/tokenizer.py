@@ -72,10 +72,19 @@ class CLIPTokenizer:
         vocab: dict[str, int],
         merges: Sequence[tuple[str, str]],
         pad_token: str | None = None,
+        use_native: bool = True,
     ):
         self.encoder = dict(vocab)
         self.decoder = {v: k for k, v in self.encoder.items()}
         self.bpe_ranks = {tuple(m): i for i, m in enumerate(merges)}
+        # the C++ merge loop (native/), built at first use; where it cannot
+        # be built the Python loop below runs, with the same ids
+        self._native = None
+        if use_native and merges:
+            from ..native import NativeBPE, load_bpe_lib
+
+            if load_bpe_lib() is not None:
+                self._native = NativeBPE([tuple(m) for m in merges])
         self.byte_encoder = bytes_to_unicode()
         self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         self.cache: dict[str, str] = {
@@ -131,6 +140,10 @@ class CLIPTokenizer:
     def _bpe(self, token: str) -> str:
         if token in self.cache:
             return self.cache[token]
+        if self._native is not None:
+            out = self._native(token)
+            self.cache[token] = out
+            return out
         word = tuple(token[:-1]) + (token[-1] + "</w>",)
         pairs = _get_pairs(word)
         if not pairs:

@@ -110,8 +110,8 @@ class PromptToPromptPipeline:
             t = plan.timesteps[i]
             lat_in = sched.scale_model_input(plan, i, lat)
             lat_b, lat_e = lat_in[0:1], lat_in[1:2]
-            eps_a, aux = m.unet(torch.cat([lat_b, lat_e, lat_b]), t, ea,
-                                capture=CAPTURE_A)
+            eps_a, aux = m._unet_call(torch.cat([lat_b, lat_e, lat_b]), t, ea,
+                                      capture=CAPTURE_A)
             eps_a = eps_a.float()
             controls = UNetControls(
                 inject_gate=bool(i < self_replace_steps * S),
@@ -123,8 +123,8 @@ class PromptToPromptPipeline:
                               for n, p in aux["cross_probs_full"].items()},
                 cross_mapper=mapper_t,
                 cross_mix=alphas_t * float(i < cross_replace_steps * S))
-            eps_e, aux_e = m.unet(lat_e, t, embeds[2:3], controls,
-                                  CAPTURE_B if blend else EMPTY_CAPTURE)
+            eps_e, aux_e = m._unet_call(lat_e, t, embeds[2:3], controls,
+                                        CAPTURE_B if blend else EMPTY_CAPTURE)
             eps_e = eps_e.float()
             eps = torch.cat([eps_a[0:1] + g * (eps_a[2:3] - eps_a[0:1]),
                              eps_a[1:2] + g * (eps_e - eps_a[1:2])])

@@ -44,7 +44,7 @@ import torch
 from ..models import config as cfgs
 from ..models.clip import CLIPTextModel
 from ..models.tokenizer import CLIPTokenizer
-from ..models.unet import (EMPTY_CAPTURE, INJECT_RESNET_NAME, CaptureSpec,
+from ..models.unet import (INJECT_RESNET_NAME, CaptureSpec,
                            UNet2DCondition, UNetControls)
 from ..models.vae import AutoencoderKL
 from ..ops.attention import make_token_weight_vectors
@@ -53,7 +53,7 @@ from ..utils.registries import (CrossAttentionLayers, SelfAttentionLayers,
                                 attn_layer_resolutions)
 from ..utils.token_maps import SEG_RESOLUTION, AttnAggregates
 from .. import weights
-from .base import (REF_PRECOMPUTE_MAX_BYTES, encoder_key_gates,
+from .base import (REF_PRECOMPUTE_MAX_BYTES, MeshMixin, encoder_key_gates,
                    ref_cache_matches, ref_fingerprint, ref_qk_bytes_per_slot)
 
 # the reference rows' capture of the in-batch flow with encoder reuse
@@ -117,7 +117,7 @@ class RichControlSpec:
     guidance_downsample: int = 1
 
 
-class RegionDiffusion:
+class RegionDiffusion(MeshMixin):
     """SD-1.5 rich-text-to-image pipeline."""
 
     ref_precompute_max_bytes = REF_PRECOMPUTE_MAX_BYTES
@@ -128,7 +128,7 @@ class RegionDiffusion:
                  vae_cfg: cfgs.VAEConfig = cfgs.SD15_VAE,
                  agg_start_step: int = 10,  # reference: n_maps > 10
                  scheduler=None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         set_precision_policy()
         self.device = torch.device(device)
         self.unet = unet.to(self.device).eval().requires_grad_(False)
@@ -144,6 +144,7 @@ class RegionDiffusion:
         self.masks: list[np.ndarray] = []  # [R+1] of [1, h, w]
         self.ref_cache: Optional[dict] = None  # set by produce_attn_maps
         self._vae_bf16: Optional[AutoencoderKL] = None
+        self.use_mesh(mesh)
 
     # ------------------------------------------------------------ factories
     @classmethod
@@ -352,7 +353,8 @@ class RegionDiffusion:
             if i in slot_of:
                 spec = dataclasses.replace(
                     spec, qk=True, resnet=frozenset({INJECT_RESNET_NAME}))
-            eps, aux = self.unet(x, plan.timesteps[i], embeds, capture=spec)
+            eps, aux = self._unet_call(x, plan.timesteps[i], embeds,
+                                       capture=spec)
             if last and self_layers:
                 self_sum = sum(aux["self_probs"][n][1].float()
                                for n in self_layers)
@@ -560,17 +562,18 @@ class RegionDiffusion:
                     controls = UNetControls(
                         token_weights=tw_rows, token_signs=ts_rows,
                         inject_gate=gate, inject_src=3, inject_dst=(4, 4 + R))
-                    eps_all, _ = self.unet(x, t, emb, controls)
+                    eps_all, _ = self._unet_call(x, t, emb, controls)
                     eps_all = eps_all.float()
                     eps_uncond, eps_base = eps_all[0:1], eps_all[1:2]
                     eps_spans = eps_all[4:]
                 elif flow == "in_batch_two":
-                    eps_all, aux = self._unet_fwd(
+                    eps_all, aux = self._unet_call(
                         torch.cat([lat_in, lat_in, ref_in, ref_in], dim=0),
                         t, emb_a,
                         UNetControls(token_weights=tw_rows,
                                      token_signs=ts_rows),
-                        CAPTURE_REF, enc_cache, "ref", key)
+                        CAPTURE_REF, enc_cache=enc_cache, name="ref",
+                        key=key)
                     eps_all = eps_all.float()
                     eps_uncond, eps_base = eps_all[0:1], eps_all[1:2]
                     eps_spans = eps_all[4:]
@@ -581,9 +584,9 @@ class RegionDiffusion:
                                        in aux["self_qk"].items()},
                             inject_resnet={n: f[3:4] for n, f
                                            in aux["resnet_hidden"].items()})
-                        eps_spans, _ = self._unet_fwd(
+                        eps_spans, _ = self._unet_call(
                             lat_in.repeat(R, 1, 1, 1), t, emb_b, controls,
-                            EMPTY_CAPTURE, enc_cache, "spans", key)
+                            enc_cache=enc_cache, name="spans", key=key)
                         eps_spans = eps_spans.float()
                 else:
                     controls = (UNetControls(token_weights=tw_rows,
@@ -599,9 +602,9 @@ class RegionDiffusion:
                             inject_resnet={n: f[j:j + 1] for n, f
                                            in ref_cache["resnet"].items()},
                             inject_dst=(1, 1 + R))
-                    eps_all, _ = self._unet_fwd(
+                    eps_all, _ = self._unet_call(
                         torch.cat([lat_in] * (R + 2), dim=0), t, emb,
-                        controls, EMPTY_CAPTURE, enc_cache, "rich", key)
+                        controls, enc_cache=enc_cache, name="rich", key=key)
                     eps_all = eps_all.float()
                     eps_uncond = eps_all[0:1]
                     eps_spans = eps_all[1:1 + R]
@@ -634,23 +637,6 @@ class RegionDiffusion:
         return torch.from_numpy(np.stack(
             [np.asarray(m, np.float32).reshape(h, w) for m in self.masks]
         )).to(self.device)[..., None]
-
-    def _unet_fwd(self, x, t, emb_text, controls, capture, enc_cache,
-                  name: str, key: bool):
-        """The UNet forward, or with ``enc_cache`` (encoder reuse) its
-        halves: ``encode`` on a key step, stored under ``name``, else the
-        stored output; ``decode`` always, with the current time embedding
-        (arXiv 2312.09608 §4)."""
-        if enc_cache is None:
-            return self.unet(x, t, emb_text, controls, capture)
-        if controls is not None:
-            controls.check_supported()
-        emb = self.unet.embed_time(t, x.shape[0])
-        if key:
-            enc_cache[name] = self.unet.encode(x, emb, emb_text, controls,
-                                               capture)
-        return self.unet.decode(enc_cache[name], emb, emb_text, controls,
-                                capture)
 
     def _guidance_vae(self, bf16: bool) -> AutoencoderKL:
         """The VAE of the guided decode: the pipeline's float32 one, or a
@@ -742,9 +728,9 @@ class RegionDiffusion:
         for i in range(plan.num_steps):
             x = self.scheduler.scale_model_input(plan, i,
                                                  torch.cat([lat, lat]))
-            eps, _ = self._unet_fwd(x, plan.timesteps[i], embeds, None,
-                                    EMPTY_CAPTURE, enc_cache, "batch",
-                                    bool(keys[i]))
+            eps, _ = self._unet_call(x, plan.timesteps[i], embeds,
+                                     enc_cache=enc_cache, name="batch",
+                                     key=bool(keys[i]))
             eps = eps.float()
             e = eps[:N] + g * (eps[N:] - eps[:N])
             lat, st = self.scheduler.step(plan, i, st, e, lat)
@@ -821,7 +807,7 @@ class RegionDiffusion:
                 with_ref = i <= last_use
                 if with_ref:
                     ref_in = sched.scale_model_input(plan, i, ref)
-                    eps, _ = self.unet(
+                    eps, _ = self._unet_call(
                         torch.cat([ref_in, ref_in] + [lat_in] * 3), t,
                         em_ref, UNetControls(
                             inject_gate=bool(inject_gates[i]), inject_src=1,
@@ -830,7 +816,8 @@ class RegionDiffusion:
                     eps_ref = eps[0:1] + g * (eps[1:2] - eps[0:1])
                     eps = eps[2:]
                 else:
-                    eps, _ = self.unet(torch.cat([lat_in] * 3), t, em_items)
+                    eps, _ = self._unet_call(torch.cat([lat_in] * 3), t,
+                                             em_items)
                     eps = eps.float()
                 eps_uncond, eps_base, eps_reg = eps.split(K)
                 noise = composite_noise(masks, g, eps_uncond, eps_base,
@@ -885,8 +872,8 @@ class RegionDiffusion:
         st = sched.init_state(lat.shape, dev)
         for i in range(plan.num_steps):
             lat_in = sched.scale_model_input(plan, i, lat)
-            eps, _ = self.unet(lat_in.repeat_interleave(R + 2, dim=0),
-                               plan.timesteps[i], e_flat)
+            eps, _ = self._unet_call(lat_in.repeat_interleave(R + 2, dim=0),
+                                     plan.timesteps[i], e_flat)
             eps = eps.float().reshape(K, R + 2, *lat.shape[1:])
             noise = composite_noise(masks, g, eps[:, 0], eps[:, -1],
                                     eps[:, 1:1 + R])

@@ -70,12 +70,13 @@ class RegionDiffusionXL(RegionDiffusion):
                  unet_cfg: cfgs.UNetConfig = cfgs.SDXL_UNET,
                  vae_cfg: cfgs.VAEConfig = cfgs.SDXL_VAE,
                  agg_start_step: int = 10, scheduler=None,
-                 vae_dtype=torch.float32, device="cuda"):
+                 vae_dtype=torch.float32, device="cuda", mesh=None):
         super().__init__(
             unet, vae, text_encoder, tokenizer, unet_cfg, vae_cfg,
             agg_start_step=agg_start_step,
             scheduler=(scheduler if scheduler is not None
-                       else EulerDiscreteScheduler()), device=device)
+                       else EulerDiscreteScheduler()), device=device,
+            mesh=mesh)
         self.text_encoder_2 = (text_encoder_2.to(self.device).eval()
                                .requires_grad_(False))
         self.tokenizer_2 = tokenizer_2
@@ -246,14 +247,8 @@ class RegionDiffusionXL(RegionDiffusion):
         ``enc_cache`` (encoder reuse) ``encode`` runs on key steps only."""
         added = {"text_embeds": pooled,
                  "time_ids": tid.expand(x.shape[0], -1)}
-        if enc_cache is None:
-            return self.unet(x, t, emb, controls, capture, added_cond=added)
-        if controls is not None:
-            controls.check_supported()
-        e = self.unet.embed_time(t, x.shape[0], added)
-        if key:
-            enc_cache[name] = self.unet.encode(x, e, emb, controls, capture)
-        return self.unet.decode(enc_cache[name], e, emb, controls, capture)
+        return self._unet_call(x, t, emb, controls, capture, added,
+                               enc_cache, name, key)
 
     # ------------------------------------------------------------ plain pass
     def produce_attn_maps(self, prompts, negative_prompts="",

@@ -39,6 +39,7 @@ from rich_text_to_image_tpu_torch.utils import token_maps as t_tm
 from rich_text_to_image_tpu_torch.utils import tracing
 from rich_text_to_image_tpu_torch.utils import viz as t_viz
 from torch_port_pipes import tiny_pipes
+from torch_port_ranks import world_of_one  # noqa: F401 (fixture)
 from torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -278,14 +279,26 @@ def test_generate_callback_end_to_end(stub_gradio, pipes, tmp_path,
         fn("", "", 1, 2, 8.5, 0.5, 0.0, 0.0, 0.3, 4)
 
 
-def test_build_app_needs_gradio_and_refuses_mesh(monkeypatch, pipes):
+def test_build_app_needs_gradio_and_refuses_mesh(monkeypatch, pipes,
+                                                 world_of_one):
+    """gradio is needed. A mesh of more devices than a world of one
+    process has raises the ``ValueError`` that names both counts, before a
+    model is built; ``auto`` places the pipeline on a (1, 1) mesh (the
+    2-rank demo is in ``tests/test_torch_port_mesh_pipeline.py``)."""
     _, tp = pipes
     monkeypatch.setitem(sys.modules, "gradio", None)  # not importable
     with pytest.raises(ImportError, match="gradio"):
         t_app.build_app("SD", model=tp)
-    with pytest.raises(SystemExit, match="--mesh"):
-        t_app.build_app("SD", model=tp, mesh="auto")
-    with pytest.raises(SystemExit, match="--mesh"):
+    with pytest.raises(ValueError, match="wants 2 devices .* has 1 "):
+        t_app.build_app("SD", model=tp, mesh="2")
+    with pytest.raises(ValueError, match="wants 2 devices .* has 1 "):
         t_app.main(["--mesh", "2", "--random_weights"])
+    monkeypatch.setitem(sys.modules, "gradio", _make_stub())
+    try:
+        assert t_app.build_app("SD", model=tp, mesh="auto",
+                               resolution=PX).kind == "Blocks"
+        assert tp.mesh.shape == {"dp": 1, "tp": 1}
+    finally:
+        tp.mesh = None
     args = t_app.make_parser().parse_args([])
     assert (args.model, args.device, args.mesh) == ("SD", "cuda", None)

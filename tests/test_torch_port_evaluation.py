@@ -43,6 +43,7 @@ from rich_text_to_image_tpu_torch.models.config import (CLIPTextConfig,
 from rich_text_to_image_tpu_torch.pipelines import region_sd as TP
 from rich_text_to_image_tpu_torch.utils import clip_score as TS
 from torch_port_pipes import port_of, tiny_pipes
+from torch_port_ranks import world_of_one  # noqa: F401 (fixture)
 from torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -194,10 +195,13 @@ def test_random_scorer_banner(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("mod", [TBC, TBS], ids=["color", "style"])
-def test_mesh_exits(mod, tmp_path):
+def test_mesh_exits(mod, tmp_path, world_of_one):
+    """``--mesh`` asks for more devices than a world of one process has:
+    the ``ValueError`` names both counts, before the model is touched (the
+    runs under a mesh are in ``tests/test_torch_port_mesh_pipeline.py``)."""
     args = mod.make_parser().parse_args(
-        ["--mesh", "auto", "--save_path", str(tmp_path)])
-    with pytest.raises(SystemExit, match="--mesh"):
+        ["--mesh", "2", "--save_path", str(tmp_path)])
+    with pytest.raises(ValueError, match="wants 2 devices .* has 1 "):
         mod.run(args, model=object())
 
 

@@ -37,16 +37,19 @@ from torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "rich_text_to_image_tpu_torch")
-BLOCKED = ("jax", "jaxlib", "flax", "triton", "regex", "PIL", "imageio",
-           "matplotlib", "gradio", "orbax", "safetensors")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "triton", "regex", "PIL",
+           "imageio", "matplotlib", "gradio", "orbax", "safetensors")
 
 _PROBE = """
 import importlib, pkgutil, sys
 for name in {blocked!r}:
     sys.modules[name] = None  # importing it now raises ImportError
 import rich_text_to_image_tpu_torch as pkg
-for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-    importlib.import_module(m.name)
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print("MODULES", sorted(names))
 bad = sorted(n for n, mod in sys.modules.items() if mod is not None and (
     n.split(".")[0] in {blocked!r} or n == "rich_text_to_image_tpu"
     or n.startswith("rich_text_to_image_tpu.")))
@@ -62,6 +65,10 @@ def test_port_imports_without_jax_or_the_jax_package():
                          timeout=300)
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
+    # the last modules of the JAX package, ported in the ninth slice
+    for mod in ("parallel.mesh", "parallel.tp", "training.train_step",
+                "native", "utils.flops"):
+        assert f"'rich_text_to_image_tpu_torch.{mod}'" in res.stdout, mod
 
 
 def _sources():
@@ -73,7 +80,8 @@ def _sources():
 
 def _is_forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax") or top == "rich_text_to_image_tpu"
+    return (top in ("jax", "jaxlib", "flax", "optax")
+            or top == "rich_text_to_image_tpu")
 
 
 def test_no_source_imports_jax_or_the_jax_package():

@@ -23,7 +23,9 @@ from rich_text_to_image_tpu.utils import token_maps as j_tm
 from rich_text_to_image_tpu_torch.cli import sample as t_cli
 from rich_text_to_image_tpu_torch.models import unet as T_unet
 from rich_text_to_image_tpu_torch.pipelines import region_sd as T
+from rich_text_to_image_tpu_torch.parallel.mesh import mesh_from_spec
 from torch_port_pipes import tiny_pipes
+from torch_port_ranks import world_of_one  # noqa: F401 (fixture)
 from torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 12  # 13 plan steps, past agg_start_step
@@ -248,13 +250,22 @@ def test_cli_accepts_ported_flags(pipes, tmp_path, argv):
     ["--mesh", "auto"], ["--save_attn", "--mesh", "2,4"],
     ["--model", "SD", "--scheduler", "euler", "--bf16_vae"],
 ])
-def test_cli_rejects_unported_flags(argv):
-    """What the CLI still refuses: ``--mesh`` with any model, and Euler
-    under SD, whose rich pass fails in the JAX package."""
-    with pytest.raises(SystemExit,
-                       match="region_sd.py:772" if "euler" in argv else
-                       "--mesh"):
-        t_cli.check_args(t_cli.make_parser().parse_args(argv))
+def test_cli_rejects_unported_flags(argv, world_of_one):
+    """What the CLI still refuses: Euler under SD, whose rich pass fails in
+    the JAX package. ``--mesh`` passes ``check_args``; in a world of one
+    process ``auto`` makes a (dp, tp) = (1, 1) mesh and ``2,4`` raises the
+    ``ValueError`` that names both counts."""
+    args = t_cli.make_parser().parse_args(argv)
+    if "euler" in argv:
+        with pytest.raises(SystemExit, match="region_sd.py:772"):
+            t_cli.check_args(args)
+        return
+    t_cli.check_args(args)
+    if args.mesh == "auto":
+        assert mesh_from_spec(args.mesh).shape == {"dp": 1, "tp": 1}
+    else:
+        with pytest.raises(ValueError, match="wants 8 devices .* has 1 "):
+            mesh_from_spec(args.mesh)
 
 
 @pytest.mark.parametrize("argv", [
