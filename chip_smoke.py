@@ -393,6 +393,19 @@ ATTN_CASES = [
     ("K4_attn_stream_96x96", "fwd", 2, 8, 1000, 160, "stream",
      {"block_q": 128, "block_k": 64}),
 ]
+# tp = 2, the attention on each rank's own heads (parallel/mesh.heads_local):
+# SD-1.5's 8 heads halve to 4 (mesh2:'s plain pass at batch 2, its rich
+# pass at R+2; the 768^2 streaming level), SDXL's 10 and 20 to 5 and 10
+TP_CASES = [
+    ("K1_attn_fwd_64x64", "fwd", 2, 4, 4096, 40, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", _RICH, 4, 4096, 40, "full", {}),
+    ("K2_attn_fwd_32x32", "fwd", 2, 4, 1024, 80, "full_t", {}),
+    ("K2_attn_fwd_32x32", "fwd", _RICH, 4, 1024, 80, "full_t", {}),
+    ("K1_attn_fwd_64x64", "fwd", 2, 5, 4096, 64, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", 2, 10, 1024, 64, "full", {}),
+    ("K4_attn_stream_96x96", "fwd", 2, 4, 9216, 40, "stream", {}),
+]
+ATTN_CASES += TP_CASES
 
 
 def _capture_pieces(q, k, v, scale, line: str) -> str:
@@ -436,9 +449,10 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
 
     from rich_text_to_image_tpu_torch.ops import attention as A
 
-    rows, k4_tiles, sdxl, evals, demo = {}, {}, {}, {}, {}
+    rows, k4_tiles, sdxl, evals, demo, tp2 = {}, {}, {}, {}, {}, {}
     sm_hz = _max_sm_hz()
-    for name, kind, b, h, s, d, bucket, kw in cases:
+    for case in cases:
+        name, kind, b, h, s, d, bucket, kw = case
         q, k, v = _qkv(b, h, s, d, seed=s + d + b)
         scale = d ** -0.5
         avgp = kind == "avgp"
@@ -499,6 +513,8 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
                 entry)
         if b in EVAL_BATCHES and (h, s, d) in ((8, 4096, 40), (8, 1024, 80)):
             evals.setdefault(name, []).append(entry)
+        if case in TP_CASES:
+            tp2.setdefault(name, []).append(dict(entry, tile=list(tile)))
         if (b, h, s, d) == KERNELS[name][2] and not kw:
             rows[name] = {
                 "name": name, "route": "cuda", "source": KERNELS[name][1],
@@ -518,12 +534,37 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
         rows[name]["eval_batches"] = entries
     for name, entries in demo.items():
         rows[name]["demo_d64"] = entries
+    _tp2_tiles(tp2)
+    for name, entries in tp2.items():
+        rows[name]["tp2_local"] = entries
     _capture_accumulated(SDXL_SELF_32)
     q, k, v = _qkv(2, 8, 4096, 40, seed=2)
     print("kernel K1 wrapper host us a launch at [2,8,4096,40]: "
           f"{_host_us(lambda: A.flash_attention(q, k, v, 40 ** -0.5)):.2f}",
           flush=True)
     return rows
+
+
+def _tp2_tiles(tp2: dict) -> None:
+    """The tile ``_fwd_tile`` picks at each local-head shape (fitted at the
+    paths' 8, 10 and 20 heads; at 4, 5 and 10 a shape has half the CTAs):
+    the pick must be a built tile; printed with its CTAs and waves."""
+    from rich_text_to_image_tpu_torch.ops import attention as A
+
+    out = {}
+    for entries in tp2.values():
+        for e in entries:
+            b, h, s, d = e["shape"]
+            m, tk = e["tile"]
+            if A._FWD_TILES[A._padded(d)].get(m) != tk:
+                raise AssertionError(f"_fwd_tile picked ({m}, {tk}) at "
+                                     f"{e['shape']}: no such built tile")
+            ctas = -(-s // m) * b * h
+            out[f"[{b},{h},{s},{d}]"] = {"tile": [m, tk], "ctas": ctas,
+                                         "waves": -(-ctas // A._SMS)}
+    print("kernel tp2 tiles (query rows a CTA, keys a tile; CTAs, waves of "
+          f"{A._SMS}) picked by ops/attention._fwd_tile at the local heads: "
+          + json.dumps(out), flush=True)
 
 
 def _capture_accumulated(layers: int) -> None:
@@ -1572,6 +1613,112 @@ def sdxl_refpre_phase(xl, out_dir: str, no_inject_img) -> None:
                              "image")
 
 
+SDXL_MICRO = {"original_size": (512, 512), "crops_coords_top_left": (0, 256)}
+
+
+def sdxl_sample_phase(xl, rows: dict) -> None:
+    """``RegionDiffusionXL.sample``, the single entry, at its default size
+    (``default_sample_size`` latent pixels: 1024^2) under Euler, 4 steps,
+    from one latent, cuDNN deterministic: the plain branch equal to
+    ``produce_attn_maps`` and the rich one to ``prompt_to_img`` to the bit;
+    SDXL_MICRO's original size and crop corner move the image; a refer
+    cache made under the default time ids is taken by a rich call under
+    them (R+2 rows a step) and refused under SDXL_MICRO (the in-batch
+    flow's R+4 rows). Every run's launches are exact: 70 K1 at head dim 64
+    a forward, but on a plain pass's capture steps (from step 1) 10 K1 and
+    60 K3."""
+    import numpy as np
+    import torch
+
+    from rich_text_to_image_tpu_torch.ops import attention as A
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    size = xl.default_sample_size * xl.vae_scale_factor
+    h = w = xl.default_sample_size
+    prompt = "a cat wearing sunglasses on a beach"
+    regions = ["a ginger cat", "golden sunglasses", prompt]  # base last
+    masks = np.zeros((len(regions), 1, h, w), np.float32)
+    edges = np.linspace(0, w, len(regions) + 1).astype(int)
+    for i in range(len(regions)):
+        masks[i, :, :, edges[i]:edges[i + 1]] = 1.0
+    xl.masks = list(masks)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    lat = torch.randn((1, h, w, 4), generator=g, device="cuda")
+    plan = xl.scheduler.plan(STEPS_SHORT)
+    calls = plan.num_steps
+    steps = tuple(np.nonzero(plan.timesteps.astype(np.float64) > 700)[0]
+                  .tolist())  # inject_selfattn 0.3
+    inject = {"inject_selfattn": 0.3, "inject_background": 0.3}
+    kw = {"num_inference_steps": STEPS_SHORT, "latents": lat}
+    runs, by_shape = {}, {}
+
+    def run(tag, fn, rich: bool):
+        A.reset_launches()
+        (img, seen), secs = _timed(lambda: _batches(xl, fn))
+        caps = 0 if rich else calls - 1
+        want = {"full": (SDXL_SELF_64 + SDXL_SELF_32) * len(seen)
+                - SDXL_SELF_32 * caps, "avgp": SDXL_SELF_32 * caps,
+                "full_t": 0, "stream": 0}
+        _expect(f"sdxl-sample {tag}", dict(A.LAUNCHES), want)
+        for k, n in A.LAUNCHES_BY_SHAPE.items():
+            by_shape[k] = by_shape.get(k, 0) + n
+        runs[tag] = (img, seen, secs)
+        return img
+
+    try:
+        with _agg_start(xl, 1):
+            run("plain", lambda: xl.sample(prompt, **kw), False)
+            run("produce_attn_maps", lambda: xl.produce_attn_maps(
+                prompt, height=size, width=size, **kw)[0], False)
+            run("rich", lambda: xl.sample(regions, run_rich_text=True,
+                                          **inject, **kw), True)
+            run("prompt_to_img", lambda: xl.prompt_to_img(
+                regions, height=size, width=size, **inject, **kw), True)
+            run("plain-micro", lambda: xl.sample(prompt, **SDXL_MICRO, **kw),
+                False)
+            run("plain-cache", lambda: xl.sample(
+                prompt, ref_capture_steps=steps, **kw), False)
+            cache = xl.ref_cache
+            run("rich-cache", lambda: xl.sample(
+                regions, run_rich_text=True, ref_cache=cache, **inject, **kw),
+                True)
+            run("rich-cache-micro", lambda: xl.sample(
+                regions, run_rich_text=True, ref_cache=cache, **SDXL_MICRO,
+                **inject, **kw), True)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    same = {k: bool(np.array_equal(runs[a][0], runs[k][0]))
+            for a, k in (("plain", "produce_attn_maps"),
+                         ("rich", "prompt_to_img"))}
+    gap = _image_diff(runs["plain-micro"][0], runs["plain"][0])
+    taken, refused = runs["rich-cache"][1], runs["rich-cache-micro"][1]
+    print(f"sdxl-sample: {size}x{size} from default_sample_size "
+          f"{xl.default_sample_size} x {xl.vae_scale_factor}, {calls} UNet "
+          f"calls a pass (Euler); sample(run_rich_text=False) equal to "
+          f"produce_attn_maps: {same['produce_attn_maps']}, the rich branch "
+          f"to prompt_to_img: {same['prompt_to_img']}; {SDXL_MICRO} against "
+          f"the default time ids: mean |image difference| {gap:.4f} uint8 "
+          f"steps; refer cache of steps {list(steps)} under the default time "
+          f"ids: UNet batches {_runs(taken)} under them, {_runs(refused)} "
+          f"under {SDXL_MICRO}; seconds "
+          + json.dumps({k: round(v[2], 3) for k, v in runs.items()}),
+          flush=True)
+    for tag, (img, _, _) in runs.items():
+        f = img.astype(np.float64)
+        if img.shape != (1, size, size, 3) or not np.isfinite(f).all() or (
+                f.std() == 0):
+            raise AssertionError(f"sdxl-sample {tag}: image {img.shape}")
+    if not all(same.values()) or gap == 0.0:
+        raise AssertionError("sdxl-sample: the entries disagree or the "
+                             "micro-conditioning did not reach the image")
+    if (taken != [REGIONS + 2] * calls or refused[0] != REGIONS + 4
+            or cache is None):
+        raise AssertionError("sdxl-sample: the refer cache was not taken "
+                             "under its time ids, or taken under others")
+    _record_phase(rows, "sdxl-sample", by_shape)
+
+
 def sdxl_breakdown_phase(xl) -> None:
     """Per-call times at 1024^2 (CUDA events): the UNet at B=2 and R+2,
     one colour-guided step exact (fp32 decode and its gradient, TF32 off)
@@ -2045,6 +2192,8 @@ def _mesh2_rank(rank: int, store: str, out_dir: str, spec: dict) -> None:
                         "seen": seen, "seconds": secs, "init_s": init_s,
                         "image_diff": _image_diff(rich, ref),
                         "mesh": dict(pipe.mesh.shape)}
+            if tag == "mesh2-tp":
+                res["gathers"] = _tp_layouts(pipe)
             if tag == "mesh2-dp":
                 path = os.path.join(out_dir, "colorbench")
                 args = BC.make_parser().parse_args(
@@ -2070,6 +2219,78 @@ def _mesh2_rank(rank: int, store: str, out_dir: str, spec: dict) -> None:
         json.dump(res, f)
 
 
+@contextlib.contextmanager
+def _every_layer_gathered(unet):
+    """While open, the tp UNet runs its attention on every head: the
+    ``to_q``, ``to_k`` and ``to_v`` of each block on its own heads take the
+    gather after the layer that the other sharded layers have, and the
+    block sees whole q, k and v (the layout without
+    ``parallel/mesh.heads_local``)."""
+    from rich_text_to_image_tpu_torch.models.unet import Attention
+    from rich_text_to_image_tpu_torch.parallel.tp import gather_channels
+
+    hooks, saved = [], []
+    for m in list(unet.modules()):
+        if isinstance(m, Attention) and m.tp_local() is not None:
+            rank, _, group = m.tp_local()
+            for lin in (m.to_q, m.to_k, m.to_v):
+                saved.append((lin, lin.tp_local))
+                del lin.tp_local
+                hooks.append(lin.register_forward_hook(
+                    lambda mod, args, y, g=group, r=rank:
+                    gather_channels(y, -1, g, r)))
+    try:
+        yield
+    finally:
+        for h in hooks:
+            h.remove()
+        for lin, loc in saved:
+            lin.tp_local = loc
+
+
+def _tp_layouts(pipe) -> dict:
+    """One B=2 forward of the tp = 2 UNet at a 64^2 latent with the
+    attention on each rank's own heads, and with every sharded layer's
+    output gathered (``_every_layer_gathered``): the gathers each moves
+    (``parallel/mesh.GATHERS``), its ms on the host clock (the collectives
+    run through host memory), the blocks on their own heads, and eps of
+    the two layouts against each other."""
+    import torch
+
+    from rich_text_to_image_tpu_torch.models.unet import Attention
+    from rich_text_to_image_tpu_torch.parallel import mesh as M
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((2, 64, 64, 4), generator=g, device="cuda")
+    emb = pipe.get_text_embeds(["a red scooter on a street"], [""])
+    local = sum(isinstance(m, Attention) and m.tp_local() is not None
+                for m in pipe.unet.modules())
+    out, eps = {"local_attention": local}, {}
+    for tag in ("local", "gathered"):
+        with contextlib.ExitStack() as stack, torch.no_grad():
+            if tag == "gathered":
+                stack.enter_context(_every_layer_gathered(pipe.unet))
+            pipe.unet(x, 500, emb)  # warm
+            torch.cuda.synchronize()
+            M.reset_gathers()
+            (eps[tag], _), secs = _timed(lambda: pipe.unet(x, 500, emb))
+        out[tag] = {**M.GATHERS, "ms": secs * 1e3}
+    out["eps_rel"] = ((eps["local"].float() - eps["gathered"].float()).abs()
+                      .max() / eps["gathered"].float().abs().max()).item()
+    return out
+
+
+def _local_heads_shapes(by_shape: dict, tp: int) -> dict:
+    """Launches by shape of a one-rank run as a tp rank makes them: the
+    kernels of every layer at ``heads // tp`` heads, the capture's at
+    every head (SD-1.5's 8 heads divide by 2 and 4 at every level)."""
+    out: dict = {}
+    for (bucket, b, h, *rest), n in by_shape.items():
+        key = (bucket, b, h if bucket == "avgp" else h // tp, *rest)
+        out[key] = out.get(key, 0) + n
+    return out
+
+
 def _shape_key(key: str) -> tuple:
     bucket, *dims = key.split(",")
     return (bucket, *map(int, dims))
@@ -2079,8 +2300,9 @@ def mesh2_phase(out_dir: str, ref_png: str, ref_shapes: dict,
                 bench_dir: str, train_loss: float, rows: dict) -> None:
     """Two ranks spawned on the one card (``_mesh2_rank``): at dp = 2 each
     rank's K1/K2 batches halve (plain pass B = 1, its capture's K3 at
-    B = 1, rich pass B = 2), at tp = 2 each launches exactly the
-    single-rank run's kernels (every layer's output is gathered whole);
+    B = 1, rich pass B = 2), at tp = 2 each launches the single-rank run's
+    kernels at half the heads (each rank's own), its K3 at every head; the
+    gathers of a UNet forward on own heads and with every layer gathered;
     the images within EVAL_MAX_DIFF of the single-rank image; the colour
     bench's batched item at dp = 2 within EVAL_MAX_DIFF of ``colorbench:``'s
     images; the dp = 2 training step's loss within TRAIN_LOSS_RTOL of one
@@ -2116,10 +2338,12 @@ def mesh2_phase(out_dir: str, ref_png: str, ref_shapes: dict,
     calls = PNDMScheduler().plan(STEPS_SHORT).num_steps
     want = {"mesh2-dp": _sd_launches([1] * calls + [2] * calls, captures=1,
                                      capture_b=1),
-            "mesh2-tp": ref_shapes}
+            "mesh2-tp": _local_heads_shapes(ref_shapes, 2)}
+    by_tag = {}
     for tag, what in (("mesh2-dp", "dp = 2: each rank's batches halve"),
                       ("mesh2-tp", "tp = 2: each rank launches the "
-                                   "single-rank run's kernels")):
+                                   "single-rank run's kernels at its own 4 "
+                                   "heads, K3 at all 8")):
         got = [{_shape_key(k): n for k, n in r[tag]["by_shape"].items()}
                for r in res]
         diffs = [r[tag]["image_diff"] for r in res]
@@ -2139,6 +2363,29 @@ def mesh2_phase(out_dir: str, ref_png: str, ref_shapes: dict,
             raise AssertionError(f"{tag}: images too far from the "
                                  f"single-rank one: {diffs}")
         _record_phase(rows, tag, got[0])
+        by_tag[tag] = got[0]
+    from rich_text_to_image_tpu_torch.ops.attention import _padded
+
+    bucket_of = {row: bucket for bucket, row in BUCKET_ROW.items()}
+    for name, row in rows.items():
+        for e in row.get("tp2_local", []):  # launches on mesh2-tp's rank 0
+            b, h, sq, d = e["shape"]
+            e["launches"] = by_tag["mesh2-tp"].get(
+                (bucket_of[name], b, h, sq, sq, _padded(d)), 0)
+    gl = [r["gathers"] for r in res]
+    n_attn = gl[0]["local_attention"]
+    print(f"mesh2: tp = 2 gathers of one UNet forward, B=2 at 64^2, on "
+          f"{n_attn} attention blocks: on own heads rank 0 "
+          f"{json.dumps(gl[0]['local'])}, rank 1 {json.dumps(gl[1]['local'])}"
+          f"; every layer's output gathered rank 0 "
+          f"{json.dumps(gl[0]['gathered'])}, rank 1 "
+          f"{json.dumps(gl[1]['gathered'])}; eps of the two layouts rel "
+          f"max|d| {[round(g['eps_rel'], 6) for g in gl]} (tol {UNET_RTOL})",
+          flush=True)
+    for g in gl:
+        if (n_attn != 32 or g["gathered"]["calls"] - g["local"]["calls"]
+                != 2 * n_attn or g["eps_rel"] > UNET_RTOL):
+            raise AssertionError(f"mesh2: the tp = 2 layouts disagree: {g}")
     means, maxes = _saved_diffs("mesh2-colorbench",
                                 os.path.join(out_dir, "colorbench"),
                                 bench_dir)
@@ -2564,6 +2811,7 @@ def main(kernels_only: bool = False) -> int:
                               os.path.join(out, "trace", "demo_xl"),
                               _demo_xl_launches)
     _record_phase(rows, "demo-xl", by_shape)
+    sdxl_sample_phase(xl, rows)
     for entry in rows["K1_attn_fwd_64x64"]["demo_d64"]:
         b, h, s, d = entry["shape"]
         entry["launches"] = by_shape.get(("full", b, h, s, s, d), 0)

@@ -41,6 +41,8 @@ from torch import nn
 
 from ..ops import attention as attn_ops
 from ..ops import conv as conv_ops
+from ..parallel.mesh import all_reduce_sum
+from ..parallel.tp import gather_channels
 from .config import UNetConfig
 
 
@@ -275,8 +277,30 @@ class ResnetBlock2D(nn.Module):
 
 
 # ----------------------------------------------------------------- attention
+def _local_heads(t, heads: int, tpl, dim: int = 1):
+    """``t``'s block of this tp rank's heads along ``dim`` where ``t``
+    holds all ``heads`` (a whole stored map or (Q, K)), else ``t`` as it
+    is."""
+    if tpl is None or t.shape[dim] != heads:
+        return t
+    rank, tp, _ = tpl
+    n = heads // tp
+    return t.narrow(dim, rank * n, n)
+
+
 class Attention(nn.Module):
-    """Self- or cross-attention on [B, S, C] with capture dispatch."""
+    """Self- or cross-attention on [B, S, C] with capture dispatch.
+
+    Under tp, where ``parallel/mesh.heads_local`` admits the block, ``to_q``,
+    ``to_k`` and ``to_v`` hold this rank's heads and keep their outputs
+    local: the kernels run on ``heads // tp`` heads and the output is
+    gathered once, before ``to_out``. The capture layers gather q, k and v
+    to every head first (their kernel averages over the heads); a captured
+    cross-attention head mean is the sum of the ranks' head sums, and the
+    prompt-to-prompt maps are gathered whole when captured and narrowed to
+    this rank's heads when injected. ``capture.qk`` keeps this rank's heads,
+    so a refer cache holds them, and a stored (Q, K) of every head is
+    narrowed to them."""
 
     def __init__(self, dim: int, heads: int, kv_dim: int | None = None,
                  layer_name: str = ""):
@@ -290,7 +314,18 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(kv, dim, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
 
-    def _injected_qk(self, q, k, controls: UNetControls | None):
+    def tp_local(self):
+        """(rank, tp, group) where this block runs on its tp rank's heads,
+        else None."""
+        loc = getattr(self.to_q, "tp_local", None)
+        return None if loc is None else (*loc, self.to_q.tp_group)
+
+    def local_heads(self) -> int:
+        """The heads this rank's kernels see."""
+        tpl = self.tp_local()
+        return self.heads if tpl is None else self.heads // tpl[1]
+
+    def _injected_qk(self, q, k, controls: UNetControls | None, tpl=None):
         """The (Q, K) this self-attention layer attends with: its own, or
         under the injection controls another row's or a stored pair."""
         if controls is None:
@@ -301,10 +336,13 @@ class Attention(nn.Module):
                if controls.inject_qk is not None else None)
         if inj is not None:
             qi, ki = inj
+            hd = self.dim // self.heads
             if qi.dim() == 3:  # pre-split [B, S, C] storage layout
-                hd = self.dim // self.heads
-                qi, ki = (t.view(t.shape[0], t.shape[1], self.heads, hd)
-                          .transpose(1, 2) for t in (qi, ki))
+                qi, ki = (_local_heads(t.view(t.shape[0], t.shape[1], -1, hd),
+                                       self.heads, tpl, 2).transpose(1, 2)
+                          for t in (qi, ki))
+            else:
+                qi, ki = (_local_heads(t, self.heads, tpl) for t in (qi, ki))
             qi, ki = qi.to(q.dtype), ki.to(k.dtype)
             if controls.inject_dst is not None and controls.inject_src is None:
                 # an explicit (Q, K) into a row range only
@@ -332,14 +370,20 @@ class Attention(nn.Module):
         B, S, _ = x.shape
         hd = self.dim // self.heads
         scale = hd ** -0.5
+        tpl = self.tp_local()
 
-        def split(t):  # [B, S, C] -> [B, H, S, hd] (a view)
-            return t.view(B, -1, self.heads, hd).transpose(1, 2)
+        def split(t):  # [B, S, C] -> [B, H, S, hd] (a view); local heads
+            return t.view(B, t.shape[1], -1, hd).transpose(1, 2)
+
+        def whole(t, dim=1):  # every head, where t holds this rank's
+            return t if tpl is None else gather_channels(t, dim, tpl[2],
+                                                         tpl[0])
 
         q = split(self.to_q(x))
         k = split(self.to_k(ctx))
         v = split(self.to_v(ctx))
         name = self.layer_name
+        gathered = tpl is None
         if is_cross:
             # font-size reweighting: softmax(s + log w) * sign, per row; the
             # prompt-to-prompt blend between the two
@@ -348,25 +392,34 @@ class Attention(nn.Module):
                 tw, ts = controls.token_weights, controls.token_signs
                 if (controls.inject_cross is not None
                         and name in controls.inject_cross):
-                    blend = (controls.inject_cross[name],
+                    blend = (_local_heads(controls.inject_cross[name],
+                                          self.heads, tpl),
                              controls.cross_mapper, controls.cross_mix)
             o, probs = attn_ops.cross_attention(q, k, v, scale, tw, ts,
                                                 return_probs=True,
                                                 blend=blend)
             if aux is not None and name in capture.cross_probs:
-                aux.setdefault("cross_probs", {})[name] = probs.mean(dim=1)
+                if tpl is None:
+                    pm = probs.mean(dim=1)
+                else:  # the ranks' head sums, summed
+                    pm = (all_reduce_sum(probs.float().sum(dim=1), tpl[2])
+                          / self.heads).to(probs.dtype)
+                aux.setdefault("cross_probs", {})[name] = pm
             if aux is not None and capture.cross_full:
-                aux.setdefault("cross_probs_full", {})[name] = probs
+                aux.setdefault("cross_probs_full", {})[name] = whole(probs)
         else:
-            qu, ku = self._injected_qk(q, k, controls)
+            qu, ku = self._injected_qk(q, k, controls, tpl)
             if name in capture.self_probs:
-                # capture layers use only the head average
+                # capture layers use only the head average: every head
+                qu, ku, vw = whole(qu), whole(ku), whole(v)
+                gathered = True
                 if (_use_flash(S) and attn_ops.avg_probs_kernel_fits(
                         S, ku.shape[2], hd)):
-                    o, pavg = attn_ops.flash_attention_avg_probs(qu, ku, v,
+                    o, pavg = attn_ops.flash_attention_avg_probs(qu, ku, vw,
                                                                  scale)
                 else:
-                    o, probs = attn_ops.attention_with_probs(qu, ku, v, scale)
+                    o, probs = attn_ops.attention_with_probs(qu, ku, vw,
+                                                             scale)
                     pavg = probs.mean(dim=1)
                 if aux is not None:
                     aux.setdefault("self_probs", {})[name] = pavg
@@ -376,7 +429,9 @@ class Attention(nn.Module):
                 o = attn_ops.cross_attention(qu, ku, v, scale)
             if capture.qk and aux is not None:
                 aux.setdefault("self_qk", {})[name] = (q, k)
-        o = o.transpose(1, 2).reshape(B, S, self.dim)
+        o = o.transpose(1, 2).reshape(B, S, -1)
+        if not gathered:
+            o = whole(o, 2)
         return self.to_out[0](o)
 
 

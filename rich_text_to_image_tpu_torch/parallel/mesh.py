@@ -8,7 +8,8 @@ its axes and its ``--mesh`` grammar:
     rows, benchmark items) split over the ranks, each rank running its
     contiguous block (``pipelines/base.py``);
   * ``tp`` — tensor parallelism: a weight's output channels split over the
-    ranks, each layer's output gathered right after it (``parallel/tp.py``);
+    ranks, each layer's output gathered right after it, and attention run
+    on each rank's own heads (``parallel/tp.py``);
   * ``dcn`` — an outermost data axis: parameters never shard on it, only the
     batch crosses it.
 
@@ -29,6 +30,15 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+# What :func:`all_gather_cat` moved since the last :func:`reset_gathers`:
+# its calls and the elements of the tensors it returned (every rank's block
+# together), for the tests and the smoke run to read.
+GATHERS = {"calls": 0, "elements": 0}
+
+
+def reset_gathers() -> None:
+    GATHERS.update(calls=0, elements=0)
 
 
 @dataclasses.dataclass
@@ -235,18 +245,45 @@ def param_spec(shape, mesh, tp_axis: str = "tp") -> Optional[int]:
     return None
 
 
+def heads_local(attn, mesh, tp_axis: str = "tp") -> bool:
+    """Whether the attention block ``attn`` (``models.unet.Attention``)
+    runs on each tp rank's own heads: its head count divides by tp and
+    :func:`param_spec` shards all of ``to_q``, ``to_k`` and ``to_v``. Then
+    those three keep their output local and the block gathers its
+    attention output before ``to_out`` (``parallel/tp.py``); elsewhere
+    (SDXL's 10 heads at tp = 4, a layer the rule leaves whole) every
+    layer's output is gathered and the kernels see every head.
+
+    The JAX package's counterpart is the kernels' partition rule,
+    ``rich_text_to_image_tpu/ops/attention.py:570-580``: batch, heads and
+    query rows may shard through a kernel, keys and values stay whole; the
+    capture kernel, which averages over the heads, keeps them whole too
+    (its ``_flash_avgp_cp``), as ``Attention.forward`` does."""
+    tp = mesh.shape[tp_axis]
+    return attn.heads % tp == 0 and all(
+        param_spec(m.weight.shape, mesh, tp_axis) is not None
+        for m in (attn.to_q, attn.to_k, attn.to_v))
+
+
 def shard_params(unet, mesh, tp_axis: str = "tp"):
     """Shard ``unet``'s weights by :func:`param_spec` over the tp axis, in
-    place (``parallel/tp.py``); nothing to do where tp is 1."""
+    place (``parallel/tp.py``), the attention blocks that
+    :func:`heads_local` admits on their own heads; nothing to do where tp
+    is 1."""
+    from ..models.unet import Attention
     from .tp import shard_module
 
     if mesh.shape[tp_axis] == 1:
         return unet
+    local = set()
+    for mod in unet.modules():
+        if isinstance(mod, Attention) and heads_local(mod, mesh, tp_axis):
+            local.update(id(m) for m in (mod.to_q, mod.to_k, mod.to_v))
     for mod in list(unet.modules()):
         if (isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d))
                 and param_spec(mod.weight.shape, mesh, tp_axis) is not None):
             shard_module(mod, mesh.groups[tp_axis], mesh.coords[tp_axis],
-                         mesh.shape[tp_axis])
+                         mesh.shape[tp_axis], gather=id(mod) not in local)
     return unet
 
 
@@ -267,6 +304,8 @@ def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
+    GATHERS["calls"] += 1
+    GATHERS["elements"] += out.numel()
     return out.to(x.device) if host else out
 
 

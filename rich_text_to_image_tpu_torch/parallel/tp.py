@@ -1,13 +1,18 @@
-"""Tensor parallelism: column shards, each layer's output gathered.
+"""Tensor parallelism: column shards, each layer's output gathered, and
+attention on each rank's own heads.
 
 A sharded ``nn.Linear`` or ``nn.Conv2d`` keeps its rank's contiguous block of
 output rows (and of the bias); a forward hook all-gathers its output over the
-tp group along the channel dimension right after the layer. Every other op
-therefore sees whole tensors — the attention kernels, the capture and the
-injection controls, GroupNorm — which keeps what the JAX package's
-``custom_partitioning`` rules allow (attention is never split over its
-key sequence, and the capture's head average sees every head). Attention
-that stays local to its heads is later work.
+tp group along the channel dimension right after the layer, so that
+GroupNorm, the resnets and the feed-forward see whole tensors. The
+exception is an attention block's ``to_q``, ``to_k`` and ``to_v``
+(``parallel/mesh.heads_local``): they keep their output local (``gather=False``
+below), so that the attention kernels run on this rank's heads alone and
+the block gathers once, its output before ``to_out`` (:func:`gather_channels`).
+That is what the JAX package's ``custom_partitioning`` rules allow:
+batch, heads and query rows pass through a kernel, keys and values stay
+whole, and the capture kernel, which averages over the heads, sees every head
+(``models/unet.Attention``).
 
 Gradients. Every tp rank computes the same loss from the gathered output, so
 the gradient that reaches a gather is the whole one on every rank, and the
@@ -41,6 +46,14 @@ class _GatherChannels(torch.autograd.Function):
                 None, None, None)
 
 
+def gather_channels(x: torch.Tensor, dim: int, group, rank: int):
+    """The tp ranks' blocks of ``x`` concatenated along ``dim`` in rank
+    order; under autograd the backward hands this rank its slice of the
+    gradient, as a sharded layer's own gather does."""
+    return _GatherChannels.apply(x, dim if dim >= 0 else x.dim() + dim,
+                                 group, rank)
+
+
 class _SumGradOverTP(torch.autograd.Function):
     """Identity forward; backward sums the gradient over the tp group."""
 
@@ -54,9 +67,13 @@ class _SumGradOverTP(torch.autograd.Function):
         return all_reduce_sum(grad.contiguous(), ctx.group), None
 
 
-def shard_module(mod: nn.Module, group, rank: int, tp: int) -> None:
+def shard_module(mod: nn.Module, group, rank: int, tp: int,
+                 gather: bool = True) -> None:
     """Keep ``mod``'s block ``rank`` of ``tp`` along its output channels
-    and gather its output over ``group`` after each forward."""
+    and gather its output over ``group`` after each forward; with
+    ``gather=False`` the output stays this rank's block, and the module
+    carries ``tp_local = (rank, tp)`` and ``tp_group`` for the caller
+    that gathers it."""
     if getattr(mod, "tp_shard", None) is not None:
         return  # sharded already
     out = mod.weight.shape[0]
@@ -79,8 +96,10 @@ def shard_module(mod: nn.Module, group, rank: int, tp: int) -> None:
         return None
 
     def post(_mod, _args, y):
-        return _GatherChannels.apply(y, dim if dim >= 0 else y.dim() + dim,
-                                     group, rank)
+        return gather_channels(y, dim, group, rank)
 
     mod.register_forward_pre_hook(pre)
-    mod.register_forward_hook(post)
+    if gather:
+        mod.register_forward_hook(post)
+    else:
+        mod.tp_local, mod.tp_group = (rank, tp), group

@@ -19,10 +19,10 @@ import torch
 from ..models.unet import (EMPTY_CAPTURE, INJECT_RESNET_NAME, Attention,
                            CaptureSpec, ResnetBlock2D, UNetControls)
 
-# Bytes the refer-precompute cache may take: the JAX package's budget for
-# the (Q, K)/resnet slots, kept so that both packages take the same flow for
-# the same request. It is that package's choice, not a measurement of the
-# card's memory.
+# Bytes the refer-precompute cache may take on one rank: the JAX package's
+# budget for the (Q, K)/resnet slots, kept so that both packages take the
+# same flow for the same request. It is that package's choice, not a
+# measurement of the card's memory.
 REF_PRECOMPUTE_MAX_BYTES = 6e9
 
 
@@ -106,10 +106,13 @@ def _downs(cfg, layer_name: str) -> int:
 
 
 def ref_qk_bytes_per_slot(unet, latent_hw) -> int:
-    """Bytes one refer-cache slot holds: the cond row's (Q, K) of every
-    self-attention layer and the feature of :data:`INJECT_RESNET_NAME`, at
-    the UNet's dtype, from the modules' widths and the latent size alone
-    (no forward runs; a UNet on the meta device will do)."""
+    """Bytes one refer-cache slot holds on this rank: the cond row's (Q, K)
+    of every self-attention layer and the feature of
+    :data:`INJECT_RESNET_NAME`, at the UNet's dtype, from the modules'
+    widths and the latent size alone (no forward runs; a UNet on the meta
+    device will do). Under tp a layer on its rank's heads keeps only those
+    (``Attention.local_heads``), so the budget that this count is held to
+    is a rank's."""
     h, w = latent_hw
     item = torch.empty((), dtype=unet.dtype).element_size()
     total = 0
@@ -120,7 +123,8 @@ def ref_qk_bytes_per_slot(unet, latent_hw) -> int:
 
     for m in unet.modules():
         if isinstance(m, Attention) and m.layer_name.endswith(".attn1"):
-            total += 2 * tokens(m.layer_name) * m.dim * item
+            width = m.local_heads() * (m.dim // m.heads)
+            total += 2 * tokens(m.layer_name) * width * item
         elif (isinstance(m, ResnetBlock2D)
               and m.layer_name == INJECT_RESNET_NAME):
             # the GroupNorm's width: a tp shard of conv2 holds fewer rows
@@ -195,11 +199,13 @@ class MeshMixin:
 
     def use_mesh(self, mesh, tp_axis: str = "tp"):
         """Place the pipeline on ``mesh`` (``parallel/mesh.py``): the UNet's
-        weights shard over tp by the package's rule, and every batched UNet
-        call splits its rows over (dcn,) dp. Every rank keeps the whole
-        pipeline otherwise: it draws the same latents from the same seed and
-        runs the text encoders, the colour-guided steps and the decode
-        whole."""
+        weights shard over tp by the package's rule, the attention kernels
+        see each tp rank's own heads (``parallel/mesh.heads_local``; the
+        capture layers and head counts that tp does not divide see every
+        head), and every batched UNet call splits its rows over (dcn,) dp.
+        Every rank keeps the whole pipeline otherwise: it draws the same
+        latents from the same seed and runs the text encoders, the
+        colour-guided steps and the decode whole."""
         from ..parallel.mesh import shard_params
 
         self.mesh = mesh

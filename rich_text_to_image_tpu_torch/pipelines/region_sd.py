@@ -216,6 +216,16 @@ class RegionDiffusion(MeshMixin):
         imgs = self._decode_imgs(latents)
         return (imgs * 255).round().to(torch.uint8).cpu().numpy()
 
+    @torch.no_grad()
+    def encode_imgs(self, imgs, seed: int = 0) -> torch.Tensor:
+        """Images in [0, 1], NHWC -> the *scaled* latent sample [B,h,w,4]
+        float32 on the pipeline's device, drawn through the VAE encoder
+        with a ``torch.Generator`` of the device seeded with ``seed`` (not
+        the JAX package's numbers for the seed)."""
+        x = torch.as_tensor(imgs, dtype=torch.float32, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return self.vae.encode(x * 2 - 1, gen)
+
     def _init_latents(self, latents, h: int, w: int, seed: int,
                       batch: int = 1):
         if latents is None:

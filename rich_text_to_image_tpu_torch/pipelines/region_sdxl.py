@@ -84,6 +84,7 @@ class RegionDiffusionXL(RegionDiffusion):
         # it); with vae_dtype bfloat16 the final decode takes a bf16 copy
         self.vae_dtype = vae_dtype
         self.watermark = True  # any falsy value opts out
+        self.default_sample_size = unet_cfg.sample_size  # latent pixels
         self._vae_tiling = False
         self._vae_slicing = False
 
@@ -179,9 +180,16 @@ class RegionDiffusionXL(RegionDiffusion):
         return np.asarray([list(original_size) + list(crops_coords_top_left)
                            + list(target_size)], dtype=np.float32)
 
-    def _time_ids(self, height: int, width: int) -> torch.Tensor:
+    def _time_ids(self, height: int, width: int, original_size=None,
+                  crops_coords_top_left=(0, 0),
+                  target_size=None) -> torch.Tensor:
+        """SDXL's micro-conditioning [1, 6] on the device: the original
+        size, the crop's top-left corner and the target size, the sizes
+        defaulting to (height, width). Every pass takes its time ids from
+        here."""
         return torch.from_numpy(self._get_add_time_ids(
-            (height, width), (0, 0), (height, width))).to(self.device)
+            original_size or (height, width), crops_coords_top_left,
+            target_size or (height, width))).to(self.device)
 
     # ------------------------------------------------------------ VAE utils
     @torch.no_grad()
@@ -250,25 +258,89 @@ class RegionDiffusionXL(RegionDiffusion):
         return self._unet_call(x, t, emb, controls, capture, added,
                                enc_cache, name, key)
 
-    # ------------------------------------------------------------ plain pass
+    # --------------------------------------------------------------- sample
+    def sample(self, prompt, negative_prompt="", height: Optional[int] = None,
+               width: Optional[int] = None, num_inference_steps: int = 50,
+               guidance_scale: float = 5.0, run_rich_text: bool = False,
+               use_guidance: bool = False, inject_selfattn: float = 0.0,
+               inject_background: float = 0.0,
+               text_format_dict: Optional[dict] = None, latents=None,
+               seed: int = 0, original_size: Optional[tuple] = None,
+               crops_coords_top_left: tuple = (0, 0),
+               target_size: Optional[tuple] = None, encoder_reuse: int = 1,
+               encoder_schedule: str = "early", bf16_guidance: bool = False,
+               guidance_downsample: int = 1,
+               ref_capture_steps: Optional[tuple] = None,
+               ref_cache: Optional[dict] = None) -> np.ndarray:
+        """The single entry (the reference's region_diffusion_sdxl.py:555):
+        the plain pass with ``run_rich_text=False`` (exactly one prompt;
+        its aggregates land in ``self.attn_aggregates`` and, with
+        ``ref_capture_steps``, the refer cache in ``self.ref_cache``), the
+        rich pass otherwise (region prompts, base prompt last). Returns the
+        uint8 images.
+
+        ``height`` and ``width`` default to ``default_sample_size`` latent
+        pixels; ``original_size`` and ``target_size`` to (height, width)
+        and ``crops_coords_top_left`` to (0, 0): SDXL's micro-conditioning,
+        the six time ids of every UNet call. The refer cache's fingerprint
+        holds them, so that a rich call under other time ids does not take
+        a cache made under these."""
+        height = height or self.default_sample_size * self.vae_scale_factor
+        width = width or self.default_sample_size * self.vae_scale_factor
+        tid = self._time_ids(height, width, original_size,
+                             crops_coords_top_left, target_size)
+        if not run_rich_text:
+            if not isinstance(prompt, str):
+                prompt = list(prompt)
+                if len(prompt) != 1:
+                    raise ValueError(
+                        "plain-branch sample() takes exactly one prompt (the "
+                        f"aggregates are per prompt); got {len(prompt)}")
+            embeds, pooled = self.encode_prompt(prompt, negative_prompt)
+            return self._plain_pass(embeds, pooled, tid, height, width,
+                                    num_inference_steps, guidance_scale,
+                                    latents, seed, ref_capture_steps)
+        fmt = dict(text_format_dict or {})
+        spec = RichControlSpec(
+            guidance_scale=guidance_scale, inject_selfattn=inject_selfattn,
+            inject_background=inject_background, use_guidance=use_guidance,
+            guidance_start_step=fmt.get("guidance_start_step", 999),
+            color_guidance_weight=fmt.get("color_guidance_weight", 1.0),
+            encoder_reuse=int(encoder_reuse),
+            encoder_schedule=encoder_schedule,
+            bf16_guidance=bool(bf16_guidance),
+            guidance_downsample=int(guidance_downsample))
+        embeds, pooled = self.encode_prompt(
+            prompt if isinstance(prompt, str) else list(prompt),
+            negative_prompt)
+        lat = self.rich_latents(embeds, pooled, height, width,
+                                num_inference_steps, latents, spec, fmt,
+                                seed, ref_cache, time_ids=tid)
+        return self.decode_latents(lat)
+
     def produce_attn_maps(self, prompts, negative_prompts="",
                           height: int = 1024, width: int = 1024,
                           num_inference_steps: int = 50,
                           guidance_scale: float = 5.0, latents=None,
                           seed: int = 0, ref_capture_steps=None):
-        """Plain CFG pass; returns (images uint8, AttnAggregates). The self
-        maps are summed over every step from ``agg_start_step`` on and over
-        every attn1 layer at the segmentation resolution. With
+        """Plain CFG pass, :meth:`sample` with ``run_rich_text=False``;
+        returns (images uint8, AttnAggregates)."""
+        img = self.sample(prompts, negative_prompts, height=height,
+                          width=width, num_inference_steps=num_inference_steps,
+                          guidance_scale=guidance_scale, latents=latents,
+                          seed=seed, ref_capture_steps=ref_capture_steps)
+        return img, self.attn_aggregates
+
+    # ------------------------------------------------------------ plain pass
+    def _plain_pass(self, embeds, pooled, tid, height: int, width: int,
+                    num_inference_steps: int, guidance_scale: float,
+                    latents, seed: int, ref_capture_steps) -> np.ndarray:
+        """The plain CFG pass on [uncond, prompt] rows under the time ids
+        ``tid``; returns the images. The self maps are summed over every
+        step from ``agg_start_step`` on and over every attn1 layer at the
+        segmentation resolution (``self.attn_aggregates``). With
         ``ref_capture_steps`` it also keeps the refer cache, as
         ``RegionDiffusion.produce_attn_maps`` does."""
-        if not isinstance(prompts, str):
-            prompts = list(prompts)
-            if len(prompts) != 1:
-                raise ValueError("produce_attn_maps takes exactly one prompt "
-                                 f"(the aggregates are per prompt); got "
-                                 f"{len(prompts)}")
-        embeds, pooled = self.encode_prompt(prompts, negative_prompts)
-        tid = self._time_ids(height, width)
         h, w = height // self.vae_scale_factor, width // self.vae_scale_factor
         sched = self.scheduler
         plan = sched.plan(num_inference_steps)
@@ -339,7 +411,7 @@ class RegionDiffusionXL(RegionDiffusion):
             cross_sums={r: c.cpu().numpy() for r, c in cross.items()},
             cross_layer_count=sum(len(v) for v in cross_by_res.values()))
         self.attn_aggregates = agg
-        return self.decode_latents(lat), agg
+        return self.decode_latents(lat)
 
     # ------------------------------------------------------------- rich pass
     def prompt_to_img(self, prompts: Sequence[str], negative_prompts="",
@@ -354,31 +426,29 @@ class RegionDiffusionXL(RegionDiffusion):
                       bf16_guidance: bool = False,
                       guidance_downsample: int = 1,
                       ref_cache: Optional[dict] = None) -> np.ndarray:
-        """Rich region-based sampling; ``prompts`` are the region prompts,
-        base prompt last, with ``len(prompts)`` masks in ``self.masks``."""
-        fmt = dict(text_format_dict or {})
-        spec = RichControlSpec(
-            guidance_scale=guidance_scale, inject_selfattn=inject_selfattn,
-            inject_background=inject_background, use_guidance=use_guidance,
-            guidance_start_step=fmt.get("guidance_start_step", 999),
-            color_guidance_weight=fmt.get("color_guidance_weight", 1.0),
-            encoder_reuse=int(encoder_reuse),
-            encoder_schedule=encoder_schedule,
-            bf16_guidance=bool(bf16_guidance),
-            guidance_downsample=int(guidance_downsample))
-        embeds, pooled = self.encode_prompt(list(prompts), negative_prompts)
-        lat = self.rich_latents(embeds, pooled, height, width,
-                                num_inference_steps, latents, spec, fmt,
-                                seed, ref_cache)
-        return self.decode_latents(lat)
+        """Rich region-based sampling, :meth:`sample` with
+        ``run_rich_text=True``; ``prompts`` are the region prompts, base
+        prompt last, with ``len(prompts)`` masks in ``self.masks``."""
+        return self.sample(
+            prompts, negative_prompts, height=height, width=width,
+            num_inference_steps=num_inference_steps,
+            guidance_scale=guidance_scale, run_rich_text=True,
+            use_guidance=use_guidance, inject_selfattn=inject_selfattn,
+            inject_background=inject_background,
+            text_format_dict=text_format_dict, latents=latents, seed=seed,
+            encoder_reuse=encoder_reuse, encoder_schedule=encoder_schedule,
+            bf16_guidance=bf16_guidance,
+            guidance_downsample=guidance_downsample, ref_cache=ref_cache)
 
     def rich_latents(self, embeds, pooled, height: int, width: int,
                      num_inference_steps: int, latents=None,
                      spec: RichControlSpec = RichControlSpec(),
                      fmt: Optional[dict] = None, seed: int = 0,
-                     ref_cache: Optional[dict] = None) -> torch.Tensor:
-        """The rich loop on [uncond, spans..., base] rows; returns the final
-        latent [1, h, w, 4] float32. Flows, as in the JAX package:
+                     ref_cache: Optional[dict] = None,
+                     time_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The rich loop on [uncond, spans..., base] rows under the time ids
+        ``time_ids`` (:meth:`_time_ids`' defaults where None); returns the
+        final latent [1, h, w, 4] float32. Flows, as in the JAX package:
 
           * no injection: one forward of [uncond, spans..., base];
           * refer-precompute, when ``ref_cache`` fits this run: one forward
@@ -404,7 +474,8 @@ class RegionDiffusionXL(RegionDiffusion):
         S = plan.num_steps
         lat = self._init_latents(latents, h, w, seed) * getattr(
             plan, "init_noise_sigma", 1.0)
-        tid = self._time_ids(height, width)
+        tid = (time_ids if time_ids is not None
+               else self._time_ids(height, width))
         ts = plan.timesteps
         inject_gates = ts.astype(np.float64) > (1 - spec.inject_selfattn) * 1000
         run_ref = spec.inject_selfattn > 0 or spec.inject_background > 0

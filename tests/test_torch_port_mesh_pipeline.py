@@ -17,70 +17,24 @@ through the bridge) and the tiny SDXL one, float32 on the CPU:
     pass's aggregates and cache) at (2, 2).
 
 Against the port's single-rank run within 1e-5 of each output's scale (the
-mesh changes the batches of the CPU's matrix products, not the maths);
+mesh changes the batches of the CPU's matrix products, not the maths; under
+tp a rank's captured (Q, K) and refer cache hold its own heads, held
+against that block of the single-rank ones);
 uint8 images within one step where float32 results that agree to ~1e-6
 round across .5. Against the JAX package's single-device run (the UNet
 call and the three rich flows) within 1e-4 of scale, as the other parity
 tests hold the port.
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rich_text_to_image_tpu.models import unet as J
-from rich_text_to_image_tpu.pipelines import region_sd as JP
 from rich_text_to_image_tpu_torch.cli import gradio_app as t_app
-from torch_port_pipes import close, tiny_pipes
+from torch_port_pipes import close, jax_forward, jax_rich, tiny_pipes
 from torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 import torch_port_ranks as R
 
 SCALE = 1e-5
-
-
-def _jax_forward(jp, inp):
-    cap = R.forward_capture(jp.unet_cfg)
-
-    def fwd(params, x, ctx, tw, ts):
-        return jp.unet.apply(
-            params, x, jnp.int32(inp["t"]), ctx,
-            controls=J.UNetControls(token_weights=tw, token_signs=ts,
-                                    inject_gate=True, inject_src=1,
-                                    inject_dst=(2, 3)),
-            capture=J.CaptureSpec(self_probs=cap.self_probs,
-                                  cross_probs=cap.cross_probs))
-
-    eps, aux = jax.jit(fwd)(jp.unet_params, *(jnp.asarray(inp[k]) for k in
-                                                ("x", "ctx", "tw", "ts")))
-    return np.asarray(eps), jax.tree.map(np.asarray, aux)
-
-
-def _jax_rich(jp, lat0):
-    """The JAX package's three flows, as ``R.rich_flows`` runs the port's."""
-    out = {}
-    lat0 = jnp.asarray(lat0)
-    for flow, (selfattn, background) in R.FLOWS.items():
-        cache = None
-        if flow == "refpre":
-            plan = jp.scheduler.plan(R.STEPS)
-            _, agg = jp.produce_attn_maps(
-                [R.PROMPTS[-1]], [""], height=R.PX, width=R.PX,
-                num_inference_steps=R.STEPS, guidance_scale=R.G,
-                latents=lat0, ref_capture_steps=tuple(
-                    int(s) for s in np.nonzero(plan.timesteps.astype(
-                        np.float64) > (1 - selfattn) * 1000)[0]))
-            cache = jp.ref_cache
-            out["agg_self_sum"] = np.asarray(agg.self_sum)
-            out["traj"] = np.asarray(cache["traj"])
-        spec = JP.RichControlSpec(guidance_scale=R.G,
-                                  inject_selfattn=selfattn,
-                                  inject_background=background)
-        out[flow] = np.asarray(jp.produce_latents(
-            jp.get_text_embeds(R.PROMPTS, [""]), height=R.PX, width=R.PX,
-            num_inference_steps=R.STEPS, latents=lat0, spec=spec,
-            **({"ref_cache": cache} if cache is not None else {})))
-    return out
 
 
 @pytest.fixture(scope="module")
@@ -100,8 +54,8 @@ def setup(tmp_path_factory):
                     (1, R.XL_H, R.XL_H, 4)).astype(np.float32))
     groups = {2: R.start(R.two_rank_checks, 2, tmp, spec),
               4: R.start(R.four_rank_checks, 4, tmp, spec)}
-    refs = {"jax_forward": _jax_forward(jp, spec["forward"]),
-            "jax_rich": _jax_rich(jp, spec["lat0"]),
+    refs = {"jax_forward": jax_forward(jp, spec["forward"]),
+            "jax_rich": jax_rich(jp, spec["lat0"]),
             "forward": R.unet_forward(tp, spec["forward"]),
             "rich": R.rich_flows(tp, spec["lat0"])}
     yield tp, spec, refs, lambda world: groups[world].results()
@@ -136,8 +90,11 @@ def _images_close(got, want):
 def test_unet_call_matches_one_rank_and_jax(setup, world, mesh):
     _, _, refs, ranks = setup
     res = ranks(world)
-    for r in res:  # every rank holds the gathered whole
-        _close_tree(r[f"fwd_{mesh}"], refs["forward"])
+    tp = 1 if mesh == "dp2" else 2
+    for rank, r in enumerate(res):  # every rank holds the gathered whole,
+        # but its captured (Q, K) of its own heads
+        _close_tree(r[f"fwd_{mesh}"],
+                    R.rank_view(refs["forward"], rank % tp, tp))
     eps_j, aux_j = refs["jax_forward"]
     got = res[0][f"fwd_{mesh}"]
     close(got["eps"], eps_j, 1e-4)
@@ -150,7 +107,7 @@ def test_unet_call_matches_one_rank_and_jax(setup, world, mesh):
 def test_rich_flows_match_one_rank_and_jax(setup):
     _, _, refs, ranks = setup
     got = ranks(4)[0]["rich"]
-    _close_tree(got, refs["rich"])
+    _close_tree(got, R.rank_view(refs["rich"], 0, 2))  # tp rank 0's heads
     want = refs["jax_rich"]
     for flow in R.FLOWS:
         close(got[flow], want[flow], 1e-4)

@@ -274,3 +274,34 @@ def test_cli_rejects_unported_flags(argv, world_of_one):
 ])
 def test_cli_takes_sdxl_and_save_attn(argv):
     t_cli.check_args(t_cli.make_parser().parse_args(argv))
+
+
+def test_encode_imgs_matches_jax(pipes, monkeypatch):
+    """``encode_imgs``: images in [0, 1], NHWC, through the VAE encoder to
+    the scaled latent sample, against JAX's with JAX's noise for the seed
+    patched into the port's draw (1e-4 of scale); the port's own draw is
+    the same for a seed and another for another seed."""
+    import jax
+
+    jp, tp = pipes
+    imgs = np.random.default_rng(4).random((2, PX, PX, 3)).astype(np.float32)
+    want = np.asarray(jp.encode_imgs(imgs, seed=3))
+    assert want.shape == (2, H, H, 4)
+    own = [tp.encode_imgs(imgs, seed=s).numpy() for s in (3, 3, 4)]
+    np.testing.assert_array_equal(own[0], own[1])
+    assert np.abs(own[0] - own[2]).max() > 0
+    noise = np.array(jax.random.normal(jax.random.PRNGKey(3), want.shape))
+    randn = torch.randn
+
+    def jax_noise(shape, generator=None, device=None, dtype=None):
+        assert tuple(shape) == (2, 4, H, H) and generator is not None
+        return torch.from_numpy(noise).permute(0, 3, 1, 2).to(dtype)
+
+    monkeypatch.setattr(torch, "randn", jax_noise)
+    got = tp.encode_imgs(torch.from_numpy(imgs), seed=3)
+    monkeypatch.setattr(torch, "randn", randn)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _close(got.numpy(), want)
+    # the noise moved the sample off the mean
+    mean = tp.vae.encode(torch.from_numpy(imgs) * 2 - 1).numpy()
+    assert np.abs(got.numpy() - mean).max() > 1e-3

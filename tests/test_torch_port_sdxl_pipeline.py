@@ -15,6 +15,10 @@ its parameters, float32 on the CPU, from the same numpy latents:
     refer trajectory frozen at the background step), refer-precompute,
     encoder reuse, with font-size weights and colour guidance, and the
     guidance pooled by 2 — each final latent within 1e-4 of its scale;
+  * ``sample``, the single entry, in both branches, with SDXL's
+    micro-conditioning (original size, crop corner, target size) at its
+    defaults and not; its wrappers, the one-prompt guard, the default size,
+    and a refer cache refused under other time ids;
   * the CLI flow for ``--model SDXL`` at the tiny size.
 
 Tolerance: 1e-4 relative to each output's scale (float32 through two
@@ -371,3 +375,103 @@ def test_random_init_draws_on_the_device():
     bf = TX.RegionDiffusionXL.random_init(dtype=torch.bfloat16, **kw)
     assert bf.unet.dtype == torch.bfloat16 and bf.vae.decoder.conv_in.weight \
         .dtype == torch.float32
+
+
+# --------------------------------------------------------------- sample()
+MICRO = dict(original_size=(48, 24), crops_coords_top_left=(4, 8),
+             target_size=(24, 40))
+
+
+def _sampled(pipe, rich: bool, latents, **kw):
+    """``pipe.sample`` with the decode the identity (the final latent) and
+    the UNet batches of each forward."""
+    prompts = PROMPTS if rich else [PROMPTS[-1]]
+    seen = []
+    mods = ([pipe.unet.conv_out] if isinstance(pipe, TX.RegionDiffusionXL)
+            else [])
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: seen.append(inp[0].shape[0])) for m in mods]
+    decode = pipe.decode_latents
+    pipe.decode_latents = lambda lat: np.asarray(lat)
+    try:
+        out = pipe.sample(prompts, "", height=PX, width=PX,
+                          num_inference_steps=STEPS, guidance_scale=G,
+                          run_rich_text=rich, latents=latents, **kw)
+    finally:
+        pipe.decode_latents = decode
+        for h in hooks:
+            h.remove()
+    return np.asarray(out), seen
+
+
+@pytest.mark.parametrize("micro", [False, True], ids=["default", "micro"])
+@pytest.mark.parametrize("rich", [False, True], ids=["plain", "rich"])
+def test_sample_matches_jax(pipes, rich, micro):
+    """``sample`` in both branches against the JAX package's, at the
+    default micro-conditioning and at another original size, crop corner
+    and target size: the final latent within 1e-4 of its scale; the plain
+    branch's aggregates too. The micro-conditioning moves the latent."""
+    jp, tp, lat0 = pipes
+    # both on the fixture's masks (the CLI test leaves its own on the port)
+    soft = np.random.default_rng(5).random((3, 1, H, H)).astype(
+        np.float32) + 0.1
+    jp.masks = tp.masks = list(soft / soft.sum(axis=0, keepdims=True))
+    kw = dict(inject_selfattn=0.3, inject_background=0.3) if rich else {}
+    kw.update(MICRO if micro else {})
+    want, _ = _sampled(jp, rich, jnp.asarray(lat0), **kw)
+    got, _ = _sampled(tp, rich, lat0, **kw)
+    close(got, want)
+    if not rich:
+        close(tp.attn_aggregates.self_sum.numpy(),
+              np.asarray(jp.attn_aggregates.self_sum))
+    if micro:
+        base, _ = _sampled(tp, rich, lat0,
+                           **{k: v for k, v in kw.items() if k not in MICRO})
+        assert np.abs(got - base).max() > 1e-3 * np.abs(base).max()
+
+
+def test_sample_wrappers_and_defaults(pipes):
+    """``produce_attn_maps`` and ``prompt_to_img`` are ``sample``'s
+    branches to the bit; the plain branch takes one prompt; height and
+    width default to ``default_sample_size`` latent pixels, as JAX's."""
+    jp, tp, lat0 = pipes
+    kw = dict(height=PX, width=PX, num_inference_steps=2, guidance_scale=G,
+              latents=lat0)
+    img, agg = tp.produce_attn_maps([PROMPTS[-1]], "", **kw)
+    assert agg is tp.attn_aggregates
+    np.testing.assert_array_equal(img, tp.sample([PROMPTS[-1]], "", **kw))
+    np.testing.assert_array_equal(
+        tp.prompt_to_img(PROMPTS, "", inject_selfattn=0.3, **kw),
+        tp.sample(PROMPTS, "", run_rich_text=True, inject_selfattn=0.3, **kw))
+    for call in (lambda: tp.sample(PROMPTS[:2], ""),
+                 lambda: tp.produce_attn_maps(PROMPTS[:2], "", **kw)):
+        with pytest.raises(ValueError, match="exactly one prompt"):
+            call()
+    assert tp.default_sample_size == jp.default_sample_size == H
+    assert tp.vae_scale_factor == jp.vae_scale_factor == PX // H
+    img = tp.sample(PROMPTS[-1], num_inference_steps=1)
+    assert img.shape == (1, PX, PX, 3)
+
+
+def test_refer_cache_is_refused_across_micro_conditioning(pipes):
+    """A refer cache from the plain branch under the default time ids is
+    taken by a rich call under the same ones (R+2 = 4 rows a step) and
+    refused under another crop corner (the in-batch flow's R+4 = 6 rows
+    while the refer trajectory is read); the fingerprints differ only in
+    the time ids."""
+    _, tp, lat0 = pipes
+    steps = _steps(tp, 0.3)
+    rich = dict(inject_selfattn=0.3, inject_background=0.3)
+    _sampled(tp, False, lat0, ref_capture_steps=steps)
+    cache = tp.ref_cache
+    _, same = _sampled(tp, True, lat0, ref_cache=cache, **rich)
+    _, other = _sampled(tp, True, lat0, ref_cache=cache,
+                        crops_coords_top_left=(0, 8), **rich)
+    assert same == [4] * STEPS
+    assert other == [6, 6, 4, 4, 4, 4]
+    fp = cache["fp"]
+    _sampled(tp, False, lat0, ref_capture_steps=steps,
+             crops_coords_top_left=(0, 8))
+    moved = [i for i, (a, b) in enumerate(zip(fp, tp.ref_cache["fp"]))
+             if a != b]
+    assert moved == [len(fp) - 2, len(fp) - 1]  # the time ids' sums

@@ -20,8 +20,10 @@ optimise the same losses:
     dp = 2 (the 3 rows in blocks of 2 and 1) and at tp = 2 (the weights
     that the rule shards split over the ranks, each shard's gradient its
     block of the whole) against the port's single-rank step: losses and
-    gradients within 1e-5 of scale. A gather whose backward summed over
-    the tp ranks would double every sharded weight's gradient.
+    gradients within 1e-5 of scale, and at tp = 2, where the attention
+    runs on each rank's own heads, the first step against JAX's within
+    1e-4. A gather whose backward summed over the tp ranks would double
+    every sharded weight's gradient.
 """
 
 import jax
@@ -180,6 +182,20 @@ def test_mesh_steps_match_one_rank(setup, port, mesh):
             else:
                 got[n] = r[mesh]["grads"][n]
         _grads_close(got, port["grads"])
+
+
+def test_tp2_step_matches_jax(setup):
+    """tp = 2, attention on each rank's own heads, against the JAX step
+    itself: the first step's loss and every gradient (a tp shard's put
+    back in its place) within 1e-4 of scale."""
+    *_, jax_out, group = setup
+    res = [r["tp2"] for r in group.results()]
+    close(res[0]["losses"][0], jax_out["losses"][0], 1e-4)
+    for n, g in jax_out["grads"].items():
+        got = res[0]["grads"][n]
+        if n.rsplit(".", 1)[0] in res[0]["sharded"]:
+            got = np.concatenate([r["grads"][n] for r in res])
+        close(got, g.numpy(), 1e-4)
 
 
 def _grads_close(got, want, rel=1e-5):

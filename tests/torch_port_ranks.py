@@ -10,6 +10,7 @@ arrays) and saves what it returns; :meth:`Ranks.results` joins the group,
 with a deadline, and loads every rank's result.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -158,6 +159,29 @@ def _np(tree):
     if torch.is_tensor(tree):
         return tree.detach().float().numpy().copy()
     return tree
+
+
+def rank_view(tree, tp_rank: int, tp: int):
+    """A one-rank result as tp rank ``tp_rank`` of ``tp`` holds it where the
+    attention runs on each rank's own heads: every captured (Q, K) under
+    ``self_qk`` [B,H,S,hd] narrowed to the rank's block of heads, every
+    refer-cache (Q, K) under ``qk`` [n,S,C] to its block of channels; the
+    rest, gathered whole on every rank, as it is."""
+    def block(a, dim):
+        n = a.shape[dim] // tp
+        return np.take(a, range(tp_rank * n, (tp_rank + 1) * n), axis=dim)
+
+    if not isinstance(tree, dict):
+        return tree
+    out = {}
+    for k, v in tree.items():
+        if k in ("self_qk", "qk") and tp > 1:
+            dim = 1 if k == "self_qk" else -1
+            out[k] = {n: tuple(block(a, dim) for a in pair)
+                      for n, pair in v.items()}
+        else:
+            out[k] = rank_view(v, tp_rank, tp)
+    return out
 
 
 # -------------------------------------------------------------- the checks
@@ -408,13 +432,15 @@ def four_rank_checks(rank, spec):
 
 
 def train_checks(rank, spec):
-    """Three train steps at dp = 2 and at tp = 2 on the spec's parameters
-    and draws: the losses, the first step's gradients (this rank's shard
-    where tp shards a weight) and the parameters after the last step."""
+    """Three train steps at dp = 2 and at tp = 2 (or at the spec's
+    ``train_meshes``, {name: ``--mesh``}) on the spec's parameters and
+    draws: the losses, the first step's gradients (this rank's shard where
+    tp shards a weight) and the parameters after the last step."""
     from rich_text_to_image_tpu_torch.training import train_step as TS
 
     out = {}
-    for name, mesh in (("dp2", "2,1"), ("tp2", "1,2")):
+    meshes = spec.get("train_meshes", {"dp2": "2,1", "tp2": "1,2"})
+    for name, mesh in meshes.items():
         draws = list(spec["draws"])
         TS.draw_t_noise = lambda gen, shape, device: tuple(
             torch.from_numpy(a) for a in draws.pop(0))
@@ -436,4 +462,143 @@ def train_checks(rank, spec):
         out[name] = {"losses": losses, "grads": grads,
                      "params": _np(dict(state.module.state_dict())),
                      "sharded": sharded}
+    return out
+
+
+# ------------------------------------------------- attention on own heads
+ATTN_OPS = ("flash_attention", "flash_attention_avg_probs",
+            "attention_with_probs", "cross_attention")
+
+
+@contextlib.contextmanager
+def recorded_attention():
+    """Every call that ``Attention.forward`` makes of the attention ops, as
+    (op, q shape), in order (not the calls the ops make of each other: the
+    plain versions on the CPU reach ``attention_with_probs``)."""
+    from rich_text_to_image_tpu_torch.ops import attention as A
+
+    seen, orig, depth = [], {k: getattr(A, k) for k in ATTN_OPS}, [0]
+
+    def wrap(k):
+        def op(q, *a, **kw):
+            if not depth[0]:
+                seen.append((k, tuple(q.shape)))
+            depth[0] += 1
+            try:
+                return orig[k](q, *a, **kw)
+            finally:
+                depth[0] -= 1
+        return op
+
+    for k in ATTN_OPS:
+        setattr(A, k, wrap(k))
+    try:
+        yield seen
+    finally:
+        for k, f in orig.items():
+            setattr(A, k, f)
+
+
+BIG_H = 32  # a 32^2 latent: 1024 tokens at the first level, the flash path
+
+
+def big_forward_inputs(cfg, rows: int = 2, seed: int = 4) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"x": rng.standard_normal((rows, BIG_H, BIG_H, 4)).astype(
+                np.float32),
+            "ctx": rng.standard_normal(
+                (rows, 77, cfg.cross_attention_dim)).astype(np.float32),
+            "t": 300}
+
+
+def big_capture(cfg) -> CaptureSpec:
+    """The first level's attn1 layers captured (the capture kernel's
+    path); the others take the flash path."""
+    names = attn_layer_resolutions(cfg, (BIG_H, BIG_H))
+    return CaptureSpec(self_probs=frozenset(
+        n for n, r in names.items() if n.endswith(".attn1") and r == BIG_H
+        and n.startswith("down_blocks")))
+
+
+@torch.no_grad()
+def big_forward(pipe, inp) -> tuple:
+    """The UNet alone on the 32^2 inputs (every rank the whole batch):
+    (eps and the captured head means, the attention ops' q shapes)."""
+    with recorded_attention() as seen:
+        eps, aux = pipe.unet(torch.from_numpy(inp["x"]), inp["t"],
+                             torch.from_numpy(inp["ctx"]),
+                             capture=big_capture(pipe.unet_cfg))
+    return {"eps": _np(eps), "aux": _np(aux)}, list(seen)
+
+
+@torch.no_grad()
+def gather_counts(pipe, inp) -> dict:
+    """What one forward of the UNet alone (no capture, no controls) moved
+    through ``all_gather_cat``, beside the layers that gather: sharded
+    layers that keep the hook, and attention blocks on their own heads."""
+    from rich_text_to_image_tpu_torch.models.unet import Attention
+    from rich_text_to_image_tpu_torch.parallel import mesh as M
+
+    M.reset_gathers()
+    pipe.unet(torch.from_numpy(inp["x"]), inp["t"],
+              torch.from_numpy(inp["ctx"]))
+    mods = list(pipe.unet.modules())
+    return {**M.GATHERS,
+            "layers": sum(getattr(m, "tp_shard", None) is not None
+                          and getattr(m, "tp_local", None) is None
+                          for m in mods),
+            "local_attention": sum(isinstance(m, Attention)
+                                   and m.tp_local() is not None
+                                   for m in mods),
+            "attention": sum(isinstance(m, Attention) for m in mods)}
+
+
+def p2p_runs(pipe, lat0) -> dict:
+    """Prompt-to-prompt's ``generate`` (the decode the identity: final
+    latents) under LocalBlend, and under Replace with an equalizer."""
+    from rich_text_to_image_tpu_torch.pipelines import prompt_to_prompt as PP
+
+    pipe.decode_latents = lambda lat: lat.numpy()
+    gen = PP.PromptToPromptPipeline(pipe).generate
+    eq = np.ones(77, np.float32)
+    eq[[3, 4]] = (2.0, -1.0)
+    kw = dict(num_inference_steps=STEPS, height=PX, width=PX, latents=lat0)
+    return {"blend": gen("a cat on a mat", "a red cat on a mat",
+                         blend_words=("cat", "cat"), blend_threshold=0.3,
+                         **kw),
+            "replace": gen("a cat runs", "a tiger runs", controller="replace",
+                           equalizer=eq, **kw)}
+
+
+def sharded_attention_checks(rank, spec):
+    """At each of the spec's meshes ({name: ``--mesh``}): the UNet call of
+    :func:`unet_forward` and the 32^2 forward with the ops' q shapes, the
+    gathers of one forward with attention on its own heads and with every
+    layer gathered (``heads_local`` off), and where the spec names them
+    the rich flows, prompt-to-prompt and the train steps."""
+    from rich_text_to_image_tpu_torch.parallel import mesh as M
+
+    out = {}
+    for name, mesh in spec["meshes"].items():
+        pipe = sd_pipe(spec, mesh)
+        with recorded_attention() as seen:
+            fwd = unet_forward(pipe, spec["forward"])
+        big, big_seen = big_forward(pipe, spec["big"])
+        res = {"fwd": fwd, "fwd_seen": list(seen), "big": big,
+               "big_seen": big_seen,
+               "gathers": gather_counts(pipe, spec["big"])}
+        orig = M.heads_local
+        M.heads_local = lambda *a, **k: False
+        try:
+            res["gathers_all_layers"] = gather_counts(sd_pipe(spec, mesh),
+                                                      spec["big"])
+        finally:
+            M.heads_local = orig
+        if name in spec.get("rich", ()):
+            res["rich"] = rich_flows(sd_pipe(spec, mesh), spec["lat0"])
+        if name in spec.get("p2p", ()):
+            res["p2p"] = p2p_runs(sd_pipe(spec, mesh), spec["lat0"])
+        out[name] = res
+    if spec.get("train_meshes"):
+        out["train"] = train_checks(rank, spec)
     return out
