@@ -81,9 +81,18 @@ is no CUDA device or the port's package is not beside it. Phases, in order:
      one card in a gloo group: the same request at dp = 2, each rank's
      batches halved, and at tp = 2, each rank launching the single-rank
      run's kernels, images within EVAL_MAX_DIFF; the colour bench's batched
-     item at dp = 2; one training step at dp = 2 against one rank's loss),
-     ``bpe:`` (the native merge loop loaded and equal to Python's) and
-     ``flops:`` (the FLOP counts and the SD-1.5 forward's mfu).
+     item at dp = 2; one full-width SDXL UNet forward at tp = 2 on each
+     rank's own heads against the rank's whole UNet; one training step at
+     dp = 2 against one rank's loss), ``bpe:`` (the native merge loop
+     loaded and equal to Python's) and ``flops:`` (the FLOP counts and the
+     SD-1.5 forward's mfu).
+ 18. the trained colour fixture, before phase 13: ``fixture-eval:`` (the
+     port's colour-fixture evaluation on the committed, JAX-trained
+     fixture: gradient cosines, the colour benchmark at 41 steps in the
+     exact, pooled and bf16 guidance configurations, steering asserted)
+     and ``fixture-train:`` (the port's trainer, 1500 VAE + 4000 UNet
+     steps at batch 64, then the fixture gates and the exact evaluation on
+     the fresh pair); neither launches a hand-written kernel.
 
 ``--kernels-only`` stops after phase 3 (and the grad guard). The line before the last lists the
 kernels as JSON; the last line is ``{"ok": true, "device": {...}}``. Any
@@ -2157,8 +2166,9 @@ def _mesh2_rank(rank: int, store: str, out_dir: str, spec: dict) -> None:
     """One of two ranks on the one card, in a gloo group (nccl refuses two
     ranks on one device; the collectives move the card's tensors through
     host memory): the mesh1 request at dp = 2 and at tp = 2, the colour
-    bench's batched item at dp = 2, then one training step at dp = 2. Its
-    results go to ``out_dir/rank<r>.json``."""
+    bench's batched item at dp = 2, one SDXL UNet forward at tp = 2, then
+    one training step at dp = 2. Its results go to
+    ``out_dir/rank<r>.json``."""
     sys.path.insert(0, spec["root"])
     import numpy as np
     import torch
@@ -2208,6 +2218,7 @@ def _mesh2_rank(rank: int, store: str, out_dir: str, spec: dict) -> None:
             del pipe
             gc.collect()
             torch.cuda.empty_cache()
+        res["sdxl-tp"] = _sdxl_tp2_forward(mesh_from_spec("1,2"))
         losses, ms, peak, (launches, _) = _train_steps(
             mesh_from_spec("2,1"), 1)
         res["train"] = {"losses": losses, "ms": ms, "peak": peak,
@@ -2217,6 +2228,56 @@ def _mesh2_rank(rank: int, store: str, out_dir: str, spec: dict) -> None:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
+
+
+def _sdxl_tp2_forward(mesh) -> dict:
+    """One full-width SDXL UNet forward at B=2 and a 128^2 latent (1024^2)
+    on this rank: whole, then with its weights sharded over the tp = 2
+    ``mesh`` (attention on the rank's own heads), the same weights drawn on
+    the card from seed 0 on each rank: K1 at [2,5,4096,64] and
+    [2,10,1024,64] and no other launch, counted by ``LAUNCHES_BY_SHAPE``;
+    eps of the two within UNET_RTOL of max|eps|; the tp forward's ms on the
+    host clock (kernels warm from the whole one) and its gathers."""
+    import torch
+
+    from rich_text_to_image_tpu_torch.models import config as cfgs
+    from rich_text_to_image_tpu_torch.models.unet import UNet2DCondition
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.parallel import mesh as M
+    from rich_text_to_image_tpu_torch.pipelines.region_sdxl import _on_device
+
+    cfg = cfgs.SDXL_UNET  # RegionDiffusionXL.random_init(seed=0)'s UNet
+    unet = _on_device(lambda: UNet2DCondition(cfg), torch.device("cuda"),
+                      torch.bfloat16, 0).eval().requires_grad_(False)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn((2, 128, 128, 4), generator=g, device="cuda")
+    emb = torch.randn((2, 77, cfg.cross_attention_dim), generator=g,
+                      device="cuda")
+    pooled_dim = (cfg.projection_class_embeddings_input_dim
+                  - 6 * cfg.addition_time_embed_dim)
+    added = {"text_embeds": torch.randn((2, pooled_dim), generator=g,
+                                        device="cuda"),
+             "time_ids": torch.tensor([[SDXL_SIZE, SDXL_SIZE, 0, 0,
+                                        SDXL_SIZE, SDXL_SIZE]] * 2,
+                                      dtype=torch.float32, device="cuda")}
+    with torch.no_grad():
+        eps_whole, _ = unet(x, 500, emb, added_cond=added)
+        M.shard_params(unet, mesh)
+        torch.cuda.synchronize()
+        A.reset_launches()
+        M.reset_gathers()
+        (eps_tp, _), secs = _timed(
+            lambda: unet(x, 500, emb, added_cond=added))
+    ref = eps_whole.float()
+    out = {"by_shape": _keyed(A.LAUNCHES_BY_SHAPE), "gathers": dict(M.GATHERS),
+           "ms": secs * 1e3,
+           "eps_rel": ((eps_tp.float() - ref).abs().max()
+                       / ref.abs().max()).item(),
+           "finite": bool(torch.isfinite(eps_tp).all())}
+    del unet, eps_whole, eps_tp, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 @contextlib.contextmanager
@@ -2305,8 +2366,10 @@ def mesh2_phase(out_dir: str, ref_png: str, ref_shapes: dict,
     gathers of a UNet forward on own heads and with every layer gathered;
     the images within EVAL_MAX_DIFF of the single-rank image; the colour
     bench's batched item at dp = 2 within EVAL_MAX_DIFF of ``colorbench:``'s
-    images; the dp = 2 training step's loss within TRAIN_LOSS_RTOL of one
-    rank's first step."""
+    images; the full-width SDXL UNet at tp = 2 launching K1 at its local
+    heads only ([2,5,4096,64] and [2,10,1024,64]), its eps within
+    UNET_RTOL of the rank's whole UNet; the dp = 2 training step's loss
+    within TRAIN_LOSS_RTOL of one rank's first step."""
     import shutil
 
     import torch.multiprocessing as mp
@@ -2364,13 +2427,36 @@ def mesh2_phase(out_dir: str, ref_png: str, ref_shapes: dict,
                                  f"single-rank one: {diffs}")
         _record_phase(rows, tag, got[0])
         by_tag[tag] = got[0]
+    xl = [r["sdxl-tp"] for r in res]
+    xl_shapes = [{_shape_key(k): n for k, n in x["by_shape"].items()}
+                 for x in xl]
+    print(f"mesh2: SDXL UNet at full width, tp = 2, attention on each "
+          f"rank's own heads, one B=2 forward at 128^2 (1024^2): launches by "
+          f"(bucket, B, H, Sq, Skv, head dim) rank 0 "
+          f"{json.dumps(xl[0]['by_shape'])}, rank 1 "
+          f"{json.dumps(xl[1]['by_shape'])}; gathers rank 0 "
+          f"{json.dumps(xl[0]['gathers'])}, rank 1 "
+          f"{json.dumps(xl[1]['gathers'])}; ms "
+          f"{[round(x['ms'], 1) for x in xl]}; eps against the rank's "
+          f"whole UNet rel max|d| "
+          f"{[round(x['eps_rel'], 6) for x in xl]} (tol {UNET_RTOL}); on "
+          f"{_smi()}", flush=True)
+    for x, got in zip(xl, xl_shapes):
+        _expect_shapes("mesh2-sdxl-tp", got, {
+            ("full", 2, 5, 4096, 4096, 64): SDXL_SELF_64,
+            ("full", 2, 10, 1024, 1024, 64): SDXL_SELF_32})
+        if not x["finite"] or x["eps_rel"] > UNET_RTOL:
+            raise AssertionError(f"mesh2: the SDXL tp = 2 forward disagrees "
+                                 f"with the whole UNet: {x}")
+    _record_phase(rows, "mesh2-sdxl-tp", xl_shapes[0])
     from rich_text_to_image_tpu_torch.ops.attention import _padded
 
     bucket_of = {row: bucket for bucket, row in BUCKET_ROW.items()}
+    local = {**by_tag["mesh2-tp"], **xl_shapes[0]}
     for name, row in rows.items():
-        for e in row.get("tp2_local", []):  # launches on mesh2-tp's rank 0
+        for e in row.get("tp2_local", []):  # launches on mesh2's rank 0
             b, h, sq, d = e["shape"]
-            e["launches"] = by_tag["mesh2-tp"].get(
+            e["launches"] = local.get(
                 (bucket_of[name], b, h, sq, sq, _padded(d)), 0)
     gl = [r["gathers"] for r in res]
     n_attn = gl[0]["local_attention"]
@@ -2410,6 +2496,199 @@ def mesh2_phase(out_dir: str, ref_png: str, ref_shapes: dict,
             or tr[0]["losses"] != tr[1]["losses"]
             or any(any(t["launches"].values()) for t in tr)):
         raise AssertionError("train: the dp = 2 step disagrees")
+
+
+def _fixture_steering(model, use_guidance: bool) -> float:
+    """``tests/test_color_fixture.py``'s ``_run`` through the port's
+    ``prompt_to_img``: 12 steps, CFG 8.5, the left half steered toward red;
+    the mean RGB distance of the left half of the image from red."""
+    import numpy as np
+
+    px = model.unet_cfg.sample_size * model.vae_scale_factor
+    h = model.unet_cfg.sample_size
+    mask = np.zeros((1, h, h), np.float32)
+    mask[:, :, : h // 2] = 1.0
+    model.masks = [mask, 1.0 - mask]
+    mask_px = np.zeros((1, px, px), np.float32)
+    mask_px[:, :, : px // 2] = 1.0
+    target = np.asarray([1.0, 0.0, 0.0], np.float32)
+    fmt = {"guidance_start_step": 999, "color_guidance_weight": 1.0,
+           "target_RGB": [target], "color_obj_atten": [mask_px],
+           "color_obj_atten_all": mask}
+    img = model.prompt_to_img(
+        ["a red square", "a square"], [""], height=px, width=px,
+        num_inference_steps=12, guidance_scale=8.5, text_format_dict=fmt,
+        use_guidance=use_guidance, seed=7)
+    region = img[0][:, : px // 2].astype(np.float32) / 255.0
+    return float(np.linalg.norm(region - target, axis=-1).mean())
+
+
+def _fixture_guided_ms(model) -> dict:
+    """Milliseconds of one colour-guided step (the VAE decode of the x0
+    prediction and its gradient) at the fixture's size, CUDA events, exact,
+    pooled by 2 and in bf16."""
+    import numpy as np
+    import torch
+
+    h = model.unet_cfg.sample_size
+    px = h * model.vae_scale_factor
+    g = torch.Generator(device="cuda").manual_seed(2)
+    lat = torch.randn((1, h, h, 4), generator=g, device="cuda")
+    noise = torch.randn((1, h, h, 4), generator=g, device="cuda")
+    fmt = {"color_obj_atten": [(np.random.default_rng(2).random(
+               (px, px)) > 0.5).astype(np.float32)],
+           "target_RGB": [[1.0, 0.0, 0.0]],
+           "color_obj_atten_all": np.ones((h, h), np.float32)}
+    out = {}
+    for tag, ds, bf16 in (("exact", 1, False), ("gds2", 2, False),
+                          ("bf16", 1, True)):
+        color = model._color_inputs(fmt, px, px, h, h, ds, bf16, 0.5)
+        out[tag] = _time_ms(lambda: model._guided(lat, noise, 0.5, color), 20)
+    return out
+
+
+def _no_launches(tag: str) -> dict:
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.ops import conv as CV
+
+    launches = {**A.LAUNCHES, **CV.LAUNCHES}
+    if any(launches.values()) or A.LAUNCHES_BY_SHAPE:
+        raise AssertionError(f"{tag}: hand-written kernels launched "
+                             f"{launches}: the fixture's attention has "
+                             f"64 tokens, under the 512-token threshold")
+    return launches
+
+
+def _fixture_graph_check(out_dir: str, steps: int = 20) -> dict:
+    """The trainer's CUDA-graph replay against the same steps run eagerly
+    (``WARM_STEPS`` past the run's end): ``steps`` VAE and UNet steps each
+    way from the same seeds. The last losses within 1e-3 relative and every
+    parameter within one Adam step (the stage's lr) of the eager run's: the
+    card's convolution backward is not bitwise reproducible, and Adam
+    turns a gradient near zero into a step of about lr either way. Also
+    each way's ms a step (host clock; the graphed run's include its warm-up
+    and capture)."""
+    from rich_text_to_image_tpu_torch.training import color_fixture as CF
+
+    graphed = CF.train(steps, steps, out_dir=os.path.join(out_dir, "graph"),
+                       device="cuda")
+    warm, CF.WARM_STEPS = CF.WARM_STEPS, steps + 1
+    try:
+        eager = CF.train(steps, steps, out_dir=os.path.join(out_dir, "eager"),
+                         device="cuda")
+    finally:
+        CF.WARM_STEPS = warm
+    out = {}
+    for m, lr, loss in (("vae", CF.VAE_LR, "vae_loss"),
+                        ("unet", CF.UNET_LR, "dsm_loss")):
+        a = getattr(graphed["model"], m).state_dict()
+        b = getattr(eager["model"], m).state_dict()
+        secs = "vae_seconds" if m == "vae" else "unet_seconds"
+        out[m] = {"max_param_diff": max((a[k] - b[k]).abs().max().item()
+                                        for k in a),
+                  "loss": [graphed[loss], eager[loss]],
+                  "ms_a_step": [graphed[secs] / steps * 1e3,
+                                eager[secs] / steps * 1e3]}
+        rel = abs(graphed[loss] - eager[loss]) / abs(eager[loss])
+        if out[m]["max_param_diff"] > lr or rel > 1e-3:
+            raise AssertionError(f"fixture-train: the graphed {m} steps "
+                                 f"disagree with the eager ones: {out[m]}")
+    return out
+
+
+def fixture_eval_phase(out_dir: str, rows: dict) -> None:
+    """The port's colour-fixture evaluation (``evaluation/
+    color_fixture_eval.py``) on the committed, JAX-trained fixture: the
+    gradient cosines and the colour benchmark at 41 steps, limit 6 x 2
+    seeds, exact, pooled by 2 and bf16 guidance. Steering must be real and
+    both approximations must beat the plain image; no hand-written kernel
+    launches (64 tokens)."""
+    from rich_text_to_image_tpu_torch.evaluation import (
+        color_fixture_eval as E)
+    from rich_text_to_image_tpu_torch.evaluation.fixtures import (
+        load_color_fixture)
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.ops import conv as CV
+
+    A.reset_launches()
+    CV.reset_launches()
+    model = load_color_fixture(device="cuda", agg_start_step=3)
+    res = E.run(model, out_dir)
+    ms = _fixture_guided_ms(model)
+    launches = _no_launches("fixture-eval")
+    v, cos = res["verdict"], res["cosines"]
+    print(f"fixture-eval: committed fixture (JAX-trained), "
+          f"{v['protocol']}: verdict {json.dumps(v)}; grad cosines exact vs "
+          f"gds2 min {min(cos):.4f} mean {sum(cos) / len(cos):.4f} over "
+          f"{len(cos)}; seconds per configuration "
+          f"{json.dumps({k: round(x, 2) for k, x in res['seconds'].items()})}"
+          f"; guided step ms at {model.unet_cfg.sample_size}^2 "
+          f"{json.dumps({k: round(x, 4) for k, x in ms.items()})}; "
+          f"hand-written launches {launches}; on {_smi()}", flush=True)
+    if not (v["steering_real"] and v["gds2_ours_min"] < v["plain_min"]
+            and v["bf16_ours_min"] < v["plain_min"]):
+        raise AssertionError(f"fixture-eval: guidance does not steer on the "
+                             f"trained fixture: {v}")
+    for name in ("K1_attn_fwd_64x64", "K2_attn_fwd_32x32",
+                 "K3_attn_avgp_32x32"):
+        rows[name].setdefault("phase_launches", {})["fixture"] = {}
+
+
+def fixture_train_phase(out_dir: str) -> None:
+    """The port's colour-fixture trainer (``training/color_fixture.py``) on
+    the card: its CUDA-graph steps against eager ones
+    (``_fixture_graph_check``), then the full protocol (1500 VAE and 4000
+    UNet steps at batch 64) into ``out_dir``; then the gates of
+    ``tests/test_color_fixture.py`` on the fresh pair read back from its
+    files: the solid-colour round trip under 0.08 and guidance pulling the
+    steered half toward red by 0.05 over the plain run; then the
+    evaluation, exact only. No hand-written kernel launches."""
+    from rich_text_to_image_tpu_torch.evaluation import (
+        color_fixture_eval as E)
+    from rich_text_to_image_tpu_torch.evaluation.fixtures import (
+        load_color_fixture)
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.ops import conv as CV
+    from rich_text_to_image_tpu_torch.training import color_fixture as CF
+
+    A.reset_launches()
+    CV.reset_launches()
+    graph_d = _fixture_graph_check(os.path.join(out_dir, "fixture_check"))
+    fixture = os.path.join(out_dir, "color_fixture_torch")
+    res, secs = _timed(lambda: CF.train(out_dir=fixture, device="cuda"))
+    model = load_color_fixture(fixture, device="cuda", agg_start_step=3)
+    meta = res["meta"]
+    rt = CF.solid_color_roundtrip(model)
+    d_plain = _fixture_steering(model, False)
+    d_ours = _fixture_steering(model, True)
+    ev = E.run(model, os.path.join(out_dir, "color_fixture_eval_torch"),
+               configs=("exact",))
+    launches = _no_launches("fixture-train")
+    vae_s, unet_s = res["vae_seconds"], res["unet_seconds"]
+    print(f"fixture-train: {meta['vae_steps']} VAE + {meta['unet_steps']} "
+          f"UNet steps at batch {meta['batch']}, {meta['px']}^2 px, CUDA "
+          f"graphs after {CF.WARM_STEPS} eager steps: VAE stage "
+          f"{vae_s:.2f} s ({vae_s / meta['vae_steps'] * 1e3:.2f} ms a step), "
+          f"UNet stage {unet_s:.2f} s "
+          f"({unet_s / meta['unet_steps'] * 1e3:.2f} ms a step), "
+          f"{secs:.2f} s in all; last losses VAE {res['vae_loss']:.5f}, DSM "
+          f"{res['dsm_loss']:.5f}; solid-colour round trip "
+          f"{meta['vae_solid_color_roundtrip_mean_abs_drgb']} (float16 "
+          f"files: {rt:.5f}; bound 0.08); steering to red, 12 steps: "
+          f"d_plain {d_plain:.4f}, d_ours {d_ours:.4f} (margin bound 0.05); "
+          f"graph against eager steps {json.dumps(graph_d)}; "
+          f"exact evaluation verdict {json.dumps(ev['verdict'])}, "
+          f"{ev['seconds']['exact']:.2f} s; hand-written launches "
+          f"{launches}; on {_smi()}", flush=True)
+    if not (meta["vae_solid_color_roundtrip_mean_abs_drgb"] < 0.08
+            and rt < 0.08):
+        raise AssertionError("fixture-train: the decoder is not "
+                             "colour-faithful")
+    if not d_ours < d_plain - 0.05:
+        raise AssertionError(f"fixture-train: guidance does not steer: "
+                             f"{d_ours} against {d_plain}")
+    if not ev["verdict"]["steering_real"]:
+        raise AssertionError(f"fixture-train: {ev['verdict']}")
 
 
 def bpe_phase() -> None:
@@ -2766,6 +3045,11 @@ def main(kernels_only: bool = False) -> int:
         rows[name].setdefault("phase_launches", {})["train"] = {}
     bpe_phase()
     flops_phase(pipe, unet_ms)
+
+    # the trained colour fixture: the committed JAX-trained pair, then one
+    # trained here by the port
+    fixture_eval_phase(os.path.join(out, "color_fixture_eval"), rows)
+    fixture_train_phase(out)
 
     profile_phase(pipe, breakdown_phase(pipe))
 

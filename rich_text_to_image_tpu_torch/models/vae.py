@@ -154,17 +154,23 @@ class AutoencoderKL(nn.Module):
         self.post_quant_conv = nn.Conv2d(cfg.latent_channels,
                                          cfg.latent_channels, 1)
 
+    def encode_moments(self, x):
+        """Pixels in [-1, 1], NHWC -> (mean, logvar), each NHWC
+        [B, h, w, latent], logvar clamped to [-30, 20]."""
+        moments = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2)))
+        mean, logvar = moments.permute(0, 2, 3, 1).chunk(2, dim=-1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
     def encode(self, x, generator: torch.Generator | None = None):
         """Pixels in [-1, 1], NHWC -> *scaled* latent NHWC: a sample drawn
         with ``generator``, or the mean when it is None."""
-        moments = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2)))
-        mean, logvar = moments.chunk(2, dim=1)
+        mean, logvar = self.encode_moments(x)
         if generator is not None:
-            logvar = logvar.clamp(-30.0, 20.0)
+            b, h, w, c = mean.shape  # drawn in the encoder's NCHW layout
             mean = mean + torch.exp(0.5 * logvar) * torch.randn(
-                mean.shape, generator=generator, device=mean.device,
-                dtype=mean.dtype)
-        return (mean * self.cfg.scaling_factor).permute(0, 2, 3, 1)
+                (b, c, h, w), generator=generator, device=mean.device,
+                dtype=mean.dtype).permute(0, 2, 3, 1)
+        return mean * self.cfg.scaling_factor
 
     def decode(self, z):
         """*Unscaled* latent NHWC -> pixels in [-1, 1], NHWC."""

@@ -175,6 +175,67 @@ def load_flax(module: nn.Module, params: Mapping, which: str) -> nn.Module:
     return module
 
 
+# the rules' renames undone, on a diffusers name without its suffix
+_UNET_BACK = ((".downsamplers.0.conv", ".downsample"),
+              (".upsamplers.0.conv", ".upsample"), (".to_out.0", ".to_out"),
+              (".ff.net.0.proj", ".ff.geglu"), (".ff.net.2", ".ff.out"))
+_VAE_BACK = ((r"down_blocks\.(\d+)\.resnets\.(\d+)", r"down_\1_res_\2"),
+             (r"down_blocks\.(\d+)\.downsamplers\.0\.conv",
+              r"down_\1_downsample"),
+             (r"up_blocks\.(\d+)\.resnets\.(\d+)", r"up_\1_res_\2"),
+             (r"up_blocks\.(\d+)\.upsamplers\.0\.conv", r"up_\1_upsample"),
+             (r"mid_block\.resnets\.(\d+)", r"mid_res_\1"),
+             (r"mid_block\.attentions\.0\.to_out\.0", "mid_attn.to_out"),
+             (r"mid_block\.attentions\.0", "mid_attn"))
+
+
+def _flax_path(name: str, which: str) -> tuple[str, ...]:
+    """The flax path (without its leaf) of a diffusers module name."""
+    if which == "unet":
+        for new, old in _UNET_BACK:
+            name = name.replace(new, old)
+        name = re.sub(r"(^|\.)(down_blocks|up_blocks|resnets|attentions|"
+                      r"transformers|transformer_blocks)\.(\d+)(?=\.|$)",
+                      r"\1\2_\3", name)
+    elif which == "vae":
+        for pat, rep in _VAE_BACK:
+            name = re.sub(pat, rep, name)
+    else:
+        raise ValueError(f"to_flax: no rule back for {which!r}")
+    return tuple(name.split("."))
+
+
+def to_flax(module: nn.Module, which: str) -> dict:
+    """The inverse of :func:`from_flax` for ``which`` "unet" or "vae":
+    ``module``'s parameters as the JAX package's tree ``{"params": ...}`` of
+    float32 numpy arrays (flax paths, HWIO conv kernels, Dense ``[in,
+    out]`` kernels, ``scale`` for a norm's weight). Each path is checked to
+    map back to its parameter's name."""
+    rule, tree = RULES[which], {}
+    for mname, mod in module.named_modules():
+        for pname, p in mod.named_parameters(recurse=False):
+            if pname == "bias":
+                leaf = "bias"
+            elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
+                leaf = "scale"
+            elif isinstance(mod, nn.Embedding):
+                leaf = "embedding"
+            else:
+                leaf = "kernel"
+            path = _flax_path(mname, which) + (leaf,)
+            name = f"{mname}.{pname}"
+            if rule(path) != name:
+                raise ValueError(f"to_flax: {name} -> {path} maps back to "
+                                 f"{rule(path)}")
+            arr = p.detach().float().cpu().numpy()
+            perm = np.argsort(_to_torch_axes(path, arr.ndim))
+            node = tree
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[leaf] = np.ascontiguousarray(arr.transpose(perm))
+    return {"params": tree}
+
+
 # ------------------------------------------------------------- random init
 @torch.no_grad()
 def random_init(module: nn.Module, seed: int) -> nn.Module:

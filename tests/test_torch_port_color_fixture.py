@@ -6,7 +6,8 @@ pipeline (a VAE whose decode is colour-faithful, a UNet trained on
 coloured squares); its parameters are carried into the port with
 ``weights.load_flax``, and the port's own loader of the same files must
 give the same UNet and VAE. The port's ``prompt_to_img`` must then pass the
-thresholds of ``tests/test_color_fixture.py``: colour guidance steers the
+thresholds of ``tests/test_color_fixture.py``: the committed meta and the
+decoder's colour round trip (:26-50), colour guidance steers the
 region toward its target (:74-81), so does guidance at half size
 (:84-90), the two-region composition with injection and font-size
 reweighting steers both regions to their own colours (:166-180), and
@@ -143,6 +144,30 @@ def test_two_region_turbos_track_exact(model, tag, kw, tol):
         tag, (tl_r, tr_b), (gl_r, gr_b))
     assert tl_b > tl_r + 0.4 and tr_r > tr_b + 0.4, (
         tag, (tl_r, tl_b, tr_b, tr_r))
+
+
+def test_meta_committed():
+    meta = TF.fixture_meta(TF.FIXTURE_DIR)
+    assert meta["configs"]["unet"] == "FIXTURE_UNET"
+    # the trainer's own solid-colour probe must show a faithful decoder
+    assert meta["vae_solid_color_roundtrip_mean_abs_drgb"] < 0.08
+
+
+def test_decode_color_faithful(model):
+    """encode -> decode of solid-colour images through the port's VAE keeps
+    their mean RGB (``tests/test_color_fixture.py:33-50``)."""
+    from rich_text_to_image_tpu_torch.utils.colors import COLORS
+
+    tp = model[0]
+    px = tp.unet_cfg.sample_size * tp.vae_scale_factor
+    rgbs = np.asarray(list(COLORS.values()), np.float32) / 255.0
+    probe = np.stack([np.full((px, px, 3), c, np.float32) * 2 - 1
+                      for c in rgbs])
+    with torch.no_grad():
+        z = tp.vae.encode(torch.from_numpy(probe))
+        rt = tp.vae.decode(z / tp.vae_cfg.scaling_factor).numpy()
+    err = np.abs(rt - probe).mean() / 2.0  # [0,1] RGB units
+    assert err < 0.08, f"decoder not colour-faithful: mean|dRGB|={err:.3f}"
 
 
 def test_port_fixture_loader_equals_jax_loader():

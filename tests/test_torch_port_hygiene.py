@@ -4,7 +4,8 @@
     ``jax``/``flax``/``triton`` and no module of the JAX package, and needs
     none of the packages the GPU machine lacks (``regex``, Pillow, imageio,
     matplotlib, gradio, orbax, safetensors).
-  * No source of the port (nor ``chip_smoke.py``) imports them.
+  * No source of the port (nor ``chip_smoke.py`` or the port's two
+    colour-fixture scripts) imports them.
   * The kernels' CUDA sources are the files under ``csrc/`` and include
     only the CUDA toolkit's headers and each other; they build into the
     git-ignored ``_build/``.
@@ -72,7 +73,9 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "scripts", f"port_{name}_color_fixture.py")
+        for name in ("train", "eval")]
     for d, _, files in os.walk(PKG):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return out
