@@ -93,6 +93,13 @@ is no CUDA device or the port's package is not beside it. Phases, in order:
      and ``fixture-train:`` (the port's trainer, 1500 VAE + 4000 UNet
      steps at batch 64, then the fixture gates and the exact evaluation on
      the fresh pair); neither launches a hand-written kernel.
+ 19. the throughput program, last: ``bench:`` (``rich_text_to_image_tpu_
+     torch/bench.py``'s ``_run`` for SD-1.5 at 512^2 and SDXL at 1024^2,
+     turbo then exact, 50 steps uncut, each model built by the CLI's
+     ``build_model``: a warm-up and the best of 3 or 2 timed runs, images
+     a minute and MFU, stage seconds, peak memory, refer-cache slots and
+     one run's launches by shape against the step structure; the
+     ``_emit`` records). The kernel phase holds every shape it launches.
 
 ``--kernels-only`` stops after phase 3 (and the grad guard). The line before the last lists the
 kernels as JSON; the last line is ``{"ok": true, "device": {...}}``. Any
@@ -194,8 +201,22 @@ DUAL_CONTEXT = (77, 257)
 LORA_RANK = 4
 LORA_UP_STD = 0.3
 # the SDXL attn1 layers at 1024^2 (models/config.py SDXL_UNET): 10 at the
-# 64^2 level, 60 at 32^2 (the segmentation level, all captured)
+# 64^2 level, 60 at 32^2 (the segmentation level, all captured); of them
+# 4 and 20 in the down path, which encoder reuse skips off its key steps
 SDXL_SELF_64, SDXL_SELF_32 = 10, 60
+SDXL_DOWN_64, SDXL_DOWN_32 = 4, 20
+# the throughput program (rich_text_to_image_tpu_torch/bench.py) samples
+# the CLI's default rich text, one footnote span: its rich batch is R+2 = 3
+BENCH_RICH = 3
+# the (kernel, B, H, S, d) the throughput program launches: SD-1.5's plain
+# and rich batches at 64^2 and 32^2, its capture; SDXL's at head dim 64
+BENCH_SHAPES = {
+    *(("K1_attn_fwd_64x64", b, h, s, d) for b in (2, BENCH_RICH)
+      for h, s, d in ((8, 4096, 40), (10, 4096, 64), (20, 1024, 64))),
+    *(("K2_attn_fwd_32x32", b, 8, 1024, 80) for b in (2, BENCH_RICH)),
+    ("K3_attn_avgp_32x32", 2, 8, 1024, 80),
+    ("K3_attn_avgp_32x32", 2, 20, 1024, 64),
+}
 
 ATTN_SRC = "rich_text_to_image_tpu_torch/csrc/attention.cu"
 KERNELS = {
@@ -370,6 +391,8 @@ ATTN_CASES = [
     ("K1_attn_fwd_64x64", "fwd", 2, 20, 1000, 64, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", DEMO_RICH, 10, 4096, 64, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", DEMO_RICH, 20, 1024, 64, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", BENCH_RICH, 10, 4096, 64, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", BENCH_RICH, 20, 1024, 64, "full", {}),
     ("K2_attn_fwd_32x32", "fwd", 2, 8, 1024, 80, "full_t", {}),
     ("K2_attn_fwd_32x32", "fwd", _RICH, 8, 1024, 80, "full_t", {}),
     ("K2_attn_fwd_32x32", "fwd", _INJ, 8, 1024, 80, "full_t", {}),
@@ -459,6 +482,7 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
     from rich_text_to_image_tpu_torch.ops import attention as A
 
     rows, k4_tiles, sdxl, evals, demo, tp2 = {}, {}, {}, {}, {}, {}
+    bench = {}
     sm_hz = _max_sm_hz()
     for case in cases:
         name, kind, b, h, s, d, bucket, kw = case
@@ -517,9 +541,12 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                  "bound_by": bound_by,
                  "library_ms": None if avgp else sdpa_ms}
-        if d == 64 and not kw and (h, s) in ((10, 4096), (20, 1024)):
+        if (d == 64 and not kw and (h, s) in ((10, 4096), (20, 1024))
+                and b != BENCH_RICH):
             (demo if b == DEMO_RICH else sdxl).setdefault(name, []).append(
                 entry)
+        if (name, b, h, s, d) in BENCH_SHAPES and not kw:
+            bench.setdefault(name, []).append(dict(entry))
         if b in EVAL_BATCHES and (h, s, d) in ((8, 4096, 40), (8, 1024, 80)):
             evals.setdefault(name, []).append(entry)
         if case in TP_CASES:
@@ -543,6 +570,8 @@ def attention_kernel_phase(cases=ATTN_CASES) -> dict:
         rows[name]["eval_batches"] = entries
     for name, entries in demo.items():
         rows[name]["demo_d64"] = entries
+    for name, entries in bench.items():
+        rows[name]["bench_shapes"] = entries
     _tp2_tiles(tp2)
     for name, entries in tp2.items():
         rows[name]["tp2_local"] = entries
@@ -1600,6 +1629,8 @@ def sdxl_refpre_phase(xl, out_dir: str, no_inject_img) -> None:
     rich pass runs R+2 rows (a fallback to the in-batch flow's R+4 fails
     the batch check in ``sdxl_phase``); the slot's bytes against the JAX
     package's ~0.42 GB a slot at 1024^2 (region_sdxl.py:394-396)."""
+    from rich_text_to_image_tpu_torch.bench import _cache_size
+
     _, _, rich, _, _ = sdxl_phase(
         xl, out_dir, "sdxl-refpre",
         ["--inject_selfattn", "0.3", "--inject_background", "0.3"])
@@ -1607,9 +1638,7 @@ def sdxl_refpre_phase(xl, out_dir: str, no_inject_img) -> None:
     if cache is None:
         raise AssertionError("sdxl-refpre: the plain pass kept no cache")
     slot = xl._ref_qk_bytes_per_slot((128, 128))
-    tensors = [cache["traj"], *cache["resnet"].values(),
-               *(t for qk in cache["qk"].values() for t in qk)]
-    total = sum(t.numel() * t.element_size() for t in tensors)
+    _, total = _cache_size(cache)
     moved = _image_diff(rich, no_inject_img)
     print(f"sdxl-refpre: refer cache {len(cache['steps'])} slot(s) (steps "
           f"{list(cache['steps'])}), {slot} bytes a slot ({slot / 1e9:.3f} "
@@ -1763,6 +1792,116 @@ def sdxl_breakdown_phase(xl) -> None:
         _profile_line("sdxl unet B=2",
                       lambda: xl._fwd(x, 500, emb, pooled, tid),
                       out["unet_b2_ms"])
+
+
+def _bench_launches(kind: str, calls: int, keys: int, agg_start: int) -> dict:
+    """The launches by shape of one run of the throughput program with
+    ``calls`` UNet calls a pass and ``keys`` key steps in the rich pass
+    (all of them in the exact configuration). SD-1.5: 5 K1 and 5 K2 a
+    forward, the plain pass's last step capturing its 32^2 layers (K3);
+    off a key step the two down-path layers of each level do not run.
+    SDXL: 10 K1 at 64^2 and 60 at 32^2 a forward, the 32^2 ones taking K3
+    on the plain pass's steps from ``agg_start`` on; off a key step the
+    down path's 4 and 20 do not run."""
+    rb, skip = BENCH_RICH, calls - keys
+    if kind == "sd15":
+        want = _sd_launches([2] * calls, captures=1)
+        for key in (("full", rb, 8, 4096, 4096, 48),
+                    ("full_t", rb, 8, 1024, 1024, 80)):
+            want[key] = 5 * keys + 3 * skip
+        return want
+    return {("full", 2, 10, 4096, 4096, 64): calls * SDXL_SELF_64,
+            ("full", 2, 20, 1024, 1024, 64): agg_start * SDXL_SELF_32,
+            ("avgp", 2, 20, 1024, 1024, 64): (calls - agg_start)
+            * SDXL_SELF_32,
+            ("full", rb, 10, 4096, 4096, 64): keys * SDXL_SELF_64
+            + skip * (SDXL_SELF_64 - SDXL_DOWN_64),
+            ("full", rb, 20, 1024, 1024, 64): keys * SDXL_SELF_32
+            + skip * (SDXL_SELF_32 - SDXL_DOWN_32)}
+
+
+def bench_phase(rows: dict) -> None:
+    """The port's throughput program (``rich_text_to_image_tpu_torch/
+    bench.py``): its ``_run`` for SD-1.5 at 512^2 and SDXL at 1024^2, turbo
+    then exact, 50 steps uncut, each model built once by the CLI's
+    ``build_model`` and handed to both configurations. Asserts a positive
+    rate and an MFU, finite non-constant images, the rich batch and each
+    kernel's launches of one timed run by shape against the step
+    structure; prints each configuration's numbers and each ``_emit``
+    record, and fills the ``bench_shapes`` entries' launches."""
+    import io
+
+    import torch
+
+    from rich_text_to_image_tpu_torch import bench as B
+    from rich_text_to_image_tpu_torch.cli.sample import (build_model,
+                                                         make_parser)
+    from rich_text_to_image_tpu_torch.ops import attention as A
+    from rich_text_to_image_tpu_torch.pipelines.base import encoder_key_gates
+
+    total: dict = {}
+    for kind, metric in B.METRICS:
+        args = make_parser().parse_args(B._argv(kind, True)[0])
+        t0 = time.time()
+        model = build_model(args)
+        torch.cuda.synchronize()
+        print(f"bench: {kind} built by cli/sample.build_model in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        calls = model.scheduler.plan(args.sample_steps).num_steps
+        res, by_shape = {}, {}
+        for exact in (False, True):
+            cfg = "exact" if exact else "turbo"
+            detail = {}
+            rate, mfu = B._run(kind, exact, model=model, detail=detail)
+            keys = int(encoder_key_gates(calls, 1 if exact else 2,
+                                         "early").sum())
+            _expect_shapes(f"bench {kind} {cfg}", detail["launches"],
+                           _bench_launches(kind, calls, keys,
+                                           model.agg_start_step))
+            if len(model.masks) != BENCH_RICH - 1:
+                raise AssertionError(f"bench {kind} {cfg}: "
+                                     f"{len(model.masks)} masks, expected "
+                                     f"R+1 = {BENCH_RICH - 1}")
+            size = B._argv(kind, exact)[1]
+            for img in detail["images"]:
+                _check_images(f"bench {kind} {cfg}", img, 1, size)
+            if not rate > 0 or mfu is None:
+                raise AssertionError(f"bench {kind} {cfg}: rate {rate}, mfu "
+                                     f"{mfu}")
+            for k, n in detail["launches"].items():
+                by_shape[k] = by_shape.get(k, 0) + n
+            peak = detail["peak_bytes"]
+            print(f"bench: {kind} {cfg}: {rate:.4f} images a minute, mfu "
+                  f"{mfu:.4f} ({detail['flops']:.6e} FLOPs); runs "
+                  f"{[round(t, 4) for t in detail['times']]} s; stage "
+                  f"seconds of the best {json.dumps(detail['seconds'])}; "
+                  f"peak device memory {peak} bytes ({peak / 2**30:.2f} "
+                  f"GiB); refer cache {detail['cache_slots']} slot(s), "
+                  f"{detail['cache_bytes']} bytes; {keys} key steps of "
+                  f"{calls} UNet calls a pass, rich batch {BENCH_RICH}; "
+                  f"launches of one run as derived "
+                  + json.dumps(_keyed(detail["launches"]))
+                  + f" on {_smi()}", flush=True)
+            res[exact] = (rate, mfu)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            B._emit(metric, kind, res[False], res[True])
+        print("bench: record " + buf.getvalue().strip(), flush=True)
+        _record_phase(rows, f"bench-{kind}", by_shape)
+        for k, n in by_shape.items():
+            total[k] = total.get(k, 0) + n
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    buckets = {row: bucket for bucket, row in BUCKET_ROW.items()}
+    for name, row in rows.items():
+        for entry in row.get("bench_shapes", []):
+            b, h, s, d = entry["shape"]
+            entry["launches"] = total.get(
+                (buckets[name], b, h, s, s, A._padded(d)), 0)
+            if not entry["launches"]:
+                raise AssertionError(f"bench: {name} launched no time at "
+                                     f"{entry['shape']}")
 
 
 # the row of the kernels line that each launch bucket counts for
@@ -3102,6 +3241,13 @@ def main(kernels_only: bool = False) -> int:
         if not entry["launches"]:
             raise AssertionError(f"demo-xl: no launch at {entry['shape']}")
     sdxl_breakdown_phase(xl)
+
+    # the throughput program at 50 steps: the SDXL pipeline gives its
+    # memory back first, and the program builds its own models
+    del xl
+    gc.collect()
+    torch.cuda.empty_cache()
+    bench_phase(rows)
 
     print(_smi(), flush=True)
     print(f"command time: {time.time() - t_start:.1f} s", flush=True)

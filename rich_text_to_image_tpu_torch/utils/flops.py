@@ -26,10 +26,14 @@ from ..ops.attention import plain_attention
 PEAK_BF16 = {"H100": 989e12}
 
 
-def peak_flops():
-    """(dense bf16 peak in FLOP/s, device name) of card 0; the peak is None
-    for a card the table does not name."""
-    kind = torch.cuda.get_device_name(0)
+def peak_flops(device="cuda"):
+    """(dense bf16 peak in FLOP/s, device name) of ``device`` (card 0 by
+    default); the peak is None for a card the table does not name, and
+    for a device that is not a card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None, device.type
+    kind = torch.cuda.get_device_name(device)
     for key, val in PEAK_BF16.items():
         if key in kind:
             return val, kind
