@@ -34,6 +34,14 @@ Every rank runs the request; the UNet's rows split over dp and its weights
 over tp, and rank 0 writes the files. As in the JAX grammar, ``N`` alone
 picks tp as 4 or 2 where it divides: ``--mesh 2`` is (dp, tp) = (1, 2),
 ``2,1`` is dp = 2.
+
+``--trace_dir DIR`` runs the sample with the port's tracer on
+(``utils/tracing``) under ``torch.profiler``: it writes a Chrome trace
+(``<host>_<pid>.pt.trace.json``, the program's spans beside the host's
+operators and the card's kernels) and the tracer's report
+(``<host>_<pid>.spans.json``: every span with its parent, sample, attrs and
+host times on the trace's clock, the UNet calls, decodes and guided steps
+with their device milliseconds, and the counters) into DIR.
 """
 
 from __future__ import annotations
@@ -41,9 +49,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import time
 
 import numpy as np
+
+from ..utils import tracing
 
 DEFAULT_RICH_TEXT = (
     '{"ops":[{"insert":"A close-up 4k dslr photo of a "},{"attributes":'
@@ -95,7 +104,16 @@ def build_model(args):
 
 def run_sample(model, args, param, save=True):
     """The reference main() flow (sample.py:17-114). Returns (plain image,
-    rich image, {stage: seconds})."""
+    rich image, {stage: seconds}). The sample is the tracer's root span
+    ``sample``; its stages are the spans ``plain_pass``, ``token_maps``
+    and ``rich_pass``, whose host seconds (each ending in a
+    synchronisation) are the stage seconds, those of ``figures`` kept
+    apart from ``token_maps``."""
+    with tracing.span("sample"):
+        return _run_sample(model, args, param, save)
+
+
+def _run_sample(model, args, param, save):
     import torch
 
     from ..ops.resize import resize_bicubic
@@ -141,13 +159,13 @@ def run_sample(model, args, param, save=True):
 
     seconds = {}
     # ---- plain pass + attention aggregation
-    begin = time.time()
-    plain_img, agg = model.produce_attn_maps(
-        [parsed.base_text_prompt], [negative_text], height=height,
-        width=width, num_inference_steps=param["steps"],
-        guidance_scale=param["guidance_weight"], seed=seed, **ref_kw)
-    _sync()
-    seconds["plain_pass"] = time.time() - begin
+    with tracing.span("plain_pass", timed=True) as stage:
+        plain_img, agg = model.produce_attn_maps(
+            [parsed.base_text_prompt], [negative_text], height=height,
+            width=width, num_inference_steps=param["steps"],
+            guidance_scale=param["guidance_weight"], seed=seed, **ref_kw)
+        _sync()
+    seconds["plain_pass"] = stage.seconds
     if save:
         write_png(os.path.join(run_dir, f"seed{seed}_plain.png"), plain_img[0])
     print("time lapses to get attention maps: %.4f" % seconds["plain_pass"])
@@ -156,48 +174,64 @@ def run_sample(model, args, param, save=True):
     # like the reference, every call writes its segmentation and token-map
     # figures into run_dir (attention_utils.py:266-270, 334-335); the time
     # they take is kept apart from the stage's, as "figures"
-    begin = time.time()
-    seconds["figures"] = 0.0
-    seg_kw = dict(segment_threshold=args.segment_threshold,
-                  num_segments=args.num_segments,
-                  save_dir=run_dir if save else None, tokens_vis=base_tokens,
-                  save_attn=args.save_attn, timings=seconds)
-    color_obj_masks = get_token_maps(agg, color_target_token_ids[:-1],
+    with tracing.span("token_maps", timed=True) as stage:
+        seconds["figures"] = 0.0
+        seg_kw = dict(segment_threshold=args.segment_threshold,
+                      num_segments=args.num_segments,
+                      save_dir=run_dir if save else None,
+                      tokens_vis=base_tokens, save_attn=args.save_attn,
+                      timings=seconds)
+        color_obj_masks = get_token_maps(agg, color_target_token_ids[:-1],
+                                         lat_hw, seed, **seg_kw)
+        color_obj_atten_all = np.zeros_like(color_obj_masks[-1])
+        for m in color_obj_masks[:-1]:
+            color_obj_atten_all += m
+        text_format_dict["color_obj_atten"] = [
+            resize_bicubic(torch.from_numpy(m), (height, width)).numpy()
+            for m in color_obj_masks[:-1]]
+        text_format_dict["color_obj_atten_all"] = color_obj_atten_all
+        model.masks = get_token_maps(agg, region_target_token_ids[:-1],
                                      lat_hw, seed, **seg_kw)
-    color_obj_atten_all = np.zeros_like(color_obj_masks[-1])
-    for m in color_obj_masks[:-1]:
-        color_obj_atten_all += m
-    text_format_dict["color_obj_atten"] = [
-        resize_bicubic(torch.from_numpy(m), (height, width)).numpy()
-        for m in color_obj_masks[:-1]]
-    text_format_dict["color_obj_atten_all"] = color_obj_atten_all
-    model.masks = get_token_maps(agg, region_target_token_ids[:-1], lat_hw,
-                                 seed, **seg_kw)
-    seconds["token_maps"] = time.time() - begin - seconds["figures"]
+    seconds["token_maps"] = stage.seconds - seconds["figures"]
 
     # ---- rich pass
-    begin = time.time()
-    rich_img = model.prompt_to_img(
-        region_text_prompts, [negative_text], height=height, width=width,
-        num_inference_steps=param["steps"],
-        guidance_scale=param["guidance_weight"],
-        use_guidance=parsed.use_grad_guidance,
-        inject_selfattn=args.inject_selfattn,
-        inject_background=args.inject_background,
-        text_format_dict=text_format_dict, seed=seed,
-        encoder_reuse=args.encoder_reuse,
-        encoder_schedule=args.encoder_schedule,
-        bf16_guidance=args.bf16_guidance,
-        guidance_downsample=args.guidance_downsample,
-        **({"ref_cache": model.ref_cache}
-           if use_refpre and model.ref_cache is not None else {}))
-    _sync()
-    seconds["rich_pass"] = time.time() - begin
+    with tracing.span("rich_pass", timed=True) as stage:
+        rich_img = model.prompt_to_img(
+            region_text_prompts, [negative_text], height=height, width=width,
+            num_inference_steps=param["steps"],
+            guidance_scale=param["guidance_weight"],
+            use_guidance=parsed.use_grad_guidance,
+            inject_selfattn=args.inject_selfattn,
+            inject_background=args.inject_background,
+            text_format_dict=text_format_dict, seed=seed,
+            encoder_reuse=args.encoder_reuse,
+            encoder_schedule=args.encoder_schedule,
+            bf16_guidance=args.bf16_guidance,
+            guidance_downsample=args.guidance_downsample,
+            **({"ref_cache": model.ref_cache}
+               if use_refpre and model.ref_cache is not None else {}))
+        _sync()
+    seconds["rich_pass"] = stage.seconds
     if save:
         write_png(os.path.join(run_dir, f"seed{seed}_rich.png"), rich_img[0])
     print("time lapses to generate image from rich text: %.4f"
           % seconds["rich_pass"])
     return plain_img, rich_img, seconds
+
+
+def trace_sample(model, args, param, save=True):
+    """:func:`run_sample` with the tracer on, under
+    ``utils.tracing.device_trace`` into ``args.trace_dir``; the tracer's
+    report is written as JSON beside the Chrome trace. Returns (the trace's
+    path, the report's path)."""
+    tracing.report()  # what an earlier run left
+    with tracing.collect(), tracing.device_trace(args.trace_dir) as path:
+        run_sample(model, args, param, save=save)
+    spans = path[:-len(".pt.trace.json")] + ".spans.json"
+    with open(spans, "w", encoding="utf-8") as f:
+        json.dump(tracing.report(), f)
+    print(f"trace: {path}; spans and counters: {spans}")
+    return path, spans
 
 
 def check_args(args) -> None:
@@ -248,6 +282,11 @@ def make_parser():
                         "'auto', N, dp,tp or dcn,dp,tp")
     p.add_argument("--encoder_schedule", choices=["early", "uniform"],
                    default="early")
+    p.add_argument("--trace_dir", type=str, default=None,
+                   help="run the sample with the tracer on under "
+                        "torch.profiler and write its Chrome trace and the "
+                        "tracer's report (spans, counters) into this "
+                        "directory")
     return p
 
 
@@ -268,7 +307,10 @@ def main(argv=None):
 
     with world_scope():
         model = build_model(args)
-        run_sample(model, args, param, save=is_main_rank())
+        if args.trace_dir is None:
+            run_sample(model, args, param, save=is_main_rank())
+        else:
+            trace_sample(model, args, param, save=is_main_rank())
 
 
 if __name__ == "__main__":

@@ -43,6 +43,7 @@ from ..ops import attention as attn_ops
 from ..ops import conv as conv_ops
 from ..parallel.mesh import all_reduce_sum
 from ..parallel.tp import gather_channels
+from ..utils import tracing
 from .config import UNetConfig
 
 
@@ -409,24 +410,31 @@ class Attention(nn.Module):
                 aux.setdefault("cross_probs_full", {})[name] = whole(probs)
         else:
             qu, ku = self._injected_qk(q, k, controls, tpl)
+            # each path's attention call alone is the span attn_self
             if name in capture.self_probs:
                 # capture layers use only the head average: every head
                 qu, ku, vw = whole(qu), whole(ku), whole(v)
                 gathered = True
                 if (_use_flash(S) and attn_ops.avg_probs_kernel_fits(
                         S, ku.shape[2], hd)):
-                    o, pavg = attn_ops.flash_attention_avg_probs(qu, ku, vw,
-                                                                 scale)
+                    with tracing.span("attn_self",
+                                      path="flash_attention_avg_probs"):
+                        o, pavg = attn_ops.flash_attention_avg_probs(
+                            qu, ku, vw, scale)
                 else:
-                    o, probs = attn_ops.attention_with_probs(qu, ku, vw,
-                                                             scale)
+                    with tracing.span("attn_self",
+                                      path="attention_with_probs"):
+                        o, probs = attn_ops.attention_with_probs(qu, ku, vw,
+                                                                 scale)
                     pavg = probs.mean(dim=1)
                 if aux is not None:
                     aux.setdefault("self_probs", {})[name] = pavg
             elif _use_flash(S):
-                o = attn_ops.flash_attention(qu, ku, v, scale)
+                with tracing.span("attn_self", path="flash_attention"):
+                    o = attn_ops.flash_attention(qu, ku, v, scale)
             else:
-                o = attn_ops.cross_attention(qu, ku, v, scale)
+                with tracing.span("attn_self", path="cross_attention"):
+                    o = attn_ops.cross_attention(qu, ku, v, scale)
             if capture.qk and aux is not None:
                 aux.setdefault("self_qk", {})[name] = (q, k)
         o = o.transpose(1, 2).reshape(B, S, -1)
@@ -692,6 +700,11 @@ class UNet2DCondition(nn.Module):
                 btype == "CrossAttnUpBlock2D", lvl != L - 1, f"up_blocks.{lvl}"))
             prev = ch
         self.up_blocks = nn.ModuleList(up)
+        # each top-level block runs inside a span of this name (utils/tracing)
+        for part, blocks in (("down", down), ("up", up)):
+            for i, blk in enumerate(blocks):
+                blk.span_name = f"unet.{part}.{i}"
+        self.mid_block.span_name = "unet.mid"
         self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, prev, eps=1e-5)
         self.conv_out = nn.Conv2d(prev, cfg.out_channels, 3, padding=1)
 
@@ -734,7 +747,8 @@ class UNet2DCondition(nn.Module):
         x = self.conv_in(sample.to(self.dtype).permute(0, 3, 1, 2))
         skips = [x]
         for blk in self.down_blocks:
-            x, s = blk(x, emb, context, controls, capture, aux)
+            with tracing.span(blk.span_name):
+                x, s = blk(x, emb, context, controls, capture, aux)
             skips += s
         return {"x": x, "skips": tuple(skips), "aux": aux}
 
@@ -745,9 +759,11 @@ class UNet2DCondition(nn.Module):
         aux = {k: dict(v) for k, v in enc["aux"].items()}
         context = encoder_hidden_states.to(self.dtype)
         skips = list(enc["skips"])
-        x = self.mid_block(enc["x"], emb, context, controls, capture, aux)
+        with tracing.span(self.mid_block.span_name):
+            x = self.mid_block(enc["x"], emb, context, controls, capture, aux)
         for blk in self.up_blocks:
-            x = blk(x, skips, emb, context, controls, capture, aux)
+            with tracing.span(blk.span_name):
+                x = blk(x, skips, emb, context, controls, capture, aux)
         x = self.conv_out(F.silu(self.conv_norm_out(x)))
         return x.permute(0, 2, 3, 1), aux
 

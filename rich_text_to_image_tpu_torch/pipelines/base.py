@@ -18,6 +18,7 @@ import torch
 
 from ..models.unet import (EMPTY_CAPTURE, INJECT_RESNET_NAME, Attention,
                            CaptureSpec, ResnetBlock2D, UNetControls)
+from ..utils import tracing
 
 # Bytes the refer-precompute cache may take on one rank: the JAX package's
 # budget for the (Q, K)/resnet slots, kept so that both packages take the
@@ -223,7 +224,9 @@ class MeshMixin:
         of rows (:meth:`~..parallel.mesh.Mesh.rows`) and eps and every
         captured output are gathered back into row order; an in-batch
         injection whose source row lies in another block takes that row as
-        one more local row, whose outputs are dropped."""
+        one more local row, whose outputs are dropped. The call is the
+        span ``unet`` (its rows, the pass and flow of the loop that makes
+        it, the encoder-reuse key) and counts in ``unet_calls`` by rows."""
 
         def fwd(x, emb, controls, added):
             if enc_cache is None:
@@ -239,28 +242,32 @@ class MeshMixin:
             return self.unet.decode(enc_cache[name], e, emb, controls,
                                     capture)
 
-        if self.mesh is None:
-            return fwd(x, emb, controls, added_cond)
-        from ..parallel.mesh import batch_spec, gather_rows
-
         n = x.shape[0]
-        counts = self.mesh.row_counts(n)
-        lo, hi = self.mesh.rows(n)
-        idx = list(range(lo, hi))
-        src = None if controls is None else controls.inject_src
-        if (src is not None and not lo <= src < hi
-                and _local_range(*controls.inject_dst, lo, hi)):
-            idx.append(src)
-        local = _local_controls(controls, lo, hi, n, idx)
-        keep = hi - lo
-        if not idx:
-            # fewer rows than ranks: run one row, without controls, and
-            # drop it; the gathers still need this rank's (empty) block
-            idx, local = [n - 1], None
-        rows = torch.as_tensor(idx, device=x.device)
-        added = (None if added_cond is None else
-                 {k: _local_rows(v, rows, n) for k, v in added_cond.items()})
-        eps, aux = fwd(x[rows], _local_rows(emb, rows, n), local, added)
-        group = batch_spec(self.mesh)
-        gather = lambda a: gather_rows(a[:keep], counts, group)
-        return gather(eps), _map_aux(gather, aux)
+        tracing.count("unet_calls", rows=n)
+        with tracing.span("unet", device=True, inherit=("pass", "flow"),
+                          rows=n, key=key):
+            if self.mesh is None:
+                return fwd(x, emb, controls, added_cond)
+            from ..parallel.mesh import batch_spec, gather_rows
+
+            counts = self.mesh.row_counts(n)
+            lo, hi = self.mesh.rows(n)
+            idx = list(range(lo, hi))
+            src = None if controls is None else controls.inject_src
+            if (src is not None and not lo <= src < hi
+                    and _local_range(*controls.inject_dst, lo, hi)):
+                idx.append(src)
+            local = _local_controls(controls, lo, hi, n, idx)
+            keep = hi - lo
+            if not idx:
+                # fewer rows than ranks: run one row, without controls, and
+                # drop it; the gathers still need this rank's (empty) block
+                idx, local = [n - 1], None
+            rows = torch.as_tensor(idx, device=x.device)
+            added = (None if added_cond is None else
+                     {k: _local_rows(v, rows, n)
+                      for k, v in added_cond.items()})
+            eps, aux = fwd(x[rows], _local_rows(emb, rows, n), local, added)
+            group = batch_spec(self.mesh)
+            gather = lambda a: gather_rows(a[:keep], counts, group)
+            return gather(eps), _map_aux(gather, aux)

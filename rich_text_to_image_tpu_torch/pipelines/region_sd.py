@@ -49,6 +49,7 @@ from ..models.unet import (INJECT_RESNET_NAME, CaptureSpec,
 from ..models.vae import AutoencoderKL
 from ..ops.attention import make_token_weight_vectors
 from ..schedulers.pndm import PNDMScheduler
+from ..utils import tracing
 from ..utils.registries import (CrossAttentionLayers, SelfAttentionLayers,
                                 attn_layer_resolutions)
 from ..utils.token_maps import SEG_RESOLUTION, AttnAggregates
@@ -195,10 +196,11 @@ class RegionDiffusion(MeshMixin):
             prompts = [prompts]
         if isinstance(negative_prompts, str):
             negative_prompts = [negative_prompts]
-        ids = self.tokenizer(list(negative_prompts) + list(prompts))
-        ids = torch.from_numpy(ids.astype(np.int64)).to(self.device)
-        return torch.cat([self.text_encoder(row[None])["last_hidden_state"]
-                          for row in ids], dim=0)
+        with tracing.span("text_encode"):
+            ids = self.tokenizer(list(negative_prompts) + list(prompts))
+            ids = torch.from_numpy(ids.astype(np.int64)).to(self.device)
+            return torch.cat([self.text_encoder(row[None])["last_hidden_state"]
+                              for row in ids], dim=0)
 
     # ------------------------------------------------------------ VAE utils
     def _decode_imgs(self, latents: torch.Tensor,
@@ -213,8 +215,9 @@ class RegionDiffusion(MeshMixin):
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor) -> np.ndarray:
         """latents [B,h,w,4] -> uint8 images [B,H,W,3]."""
-        imgs = self._decode_imgs(latents)
-        return (imgs * 255).round().to(torch.uint8).cpu().numpy()
+        with tracing.span("decode", device=True):
+            imgs = self._decode_imgs(latents)
+            return (imgs * 255).round().to(torch.uint8).cpu().numpy()
 
     @torch.no_grad()
     def encode_imgs(self, imgs, seed: int = 0) -> torch.Tensor:
@@ -300,18 +303,22 @@ class RegionDiffusion(MeshMixin):
         # drop the last run's cache before this one fills a new one
         self.ref_cache = None
         cache = {} if slots is not None else None
-        lat_end, self_sum, cross_sums, self_layers, cross_by_res = (
-            self._plain_loop(lat, embeds, num_inference_steps,
-                             float(guidance_scale), ref_slots=slots,
-                             ref_cache=cache))
+        with tracing.span("plain_loop", flow="refpre" if slots else "plain",
+                          **{"pass": "plain"}):
+            lat_end, self_sum, cross_sums, self_layers, cross_by_res = (
+                self._plain_loop(lat, embeds, num_inference_steps,
+                                 float(guidance_scale), ref_slots=slots,
+                                 ref_cache=cache))
         if cache is not None:
             cache.update(steps=slots, g=float(guidance_scale), hw=(h, w),
                          fp=ref_fingerprint(lat, embeds[0], embeds[-1]))
             self.ref_cache = cache
+        with tracing.span("capture_sums"):
+            cross_sums = {r: c.cpu().numpy() for r, c in cross_sums.items()}
         agg = AttnAggregates(
             self_sum=self_sum,
             self_count=len(self_layers),
-            cross_sums={r: c.cpu().numpy() for r, c in cross_sums.items()},
+            cross_sums=cross_sums,
             cross_layer_count=sum(len(v) for v in cross_by_res.values()),
         )
         self.attn_aggregates = agg
@@ -559,86 +566,94 @@ class RegionDiffusion(MeshMixin):
         lat_ref = lat if flow.startswith("in_batch") else None
         st = sched.init_state(
             (2 if lat_ref is not None else 1, *lat.shape[1:]), dev)
-        for i in range(S):
-            t = plan.timesteps[i]
-            gate, key = bool(inject_gates[i]), bool(key_steps[i])
-            with torch.no_grad():
-                lat_in = sched.scale_model_input(plan, i, lat)
-                if lat_ref is not None:
-                    ref_in = sched.scale_model_input(plan, i, lat_ref)
-                if flow == "in_batch":
-                    x = torch.cat([lat_in, lat_in, ref_in, ref_in]
-                                  + [lat_in] * R, dim=0)
-                    controls = UNetControls(
-                        token_weights=tw_rows, token_signs=ts_rows,
-                        inject_gate=gate, inject_src=3, inject_dst=(4, 4 + R))
-                    eps_all, _ = self._unet_call(x, t, emb, controls)
-                    eps_all = eps_all.float()
-                    eps_uncond, eps_base = eps_all[0:1], eps_all[1:2]
-                    eps_spans = eps_all[4:]
-                elif flow == "in_batch_two":
-                    eps_all, aux = self._unet_call(
-                        torch.cat([lat_in, lat_in, ref_in, ref_in], dim=0),
-                        t, emb_a,
-                        UNetControls(token_weights=tw_rows,
-                                     token_signs=ts_rows),
-                        CAPTURE_REF, enc_cache=enc_cache, name="ref",
-                        key=key)
-                    eps_all = eps_all.float()
-                    eps_uncond, eps_base = eps_all[0:1], eps_all[1:2]
-                    eps_spans = eps_all[4:]
-                    if R > 0:
-                        controls = UNetControls(
-                            inject_gate=gate,
-                            inject_qk={n: (q[3:4], k[3:4]) for n, (q, k)
-                                       in aux["self_qk"].items()},
-                            inject_resnet={n: f[3:4] for n, f
-                                           in aux["resnet_hidden"].items()})
-                        eps_spans, _ = self._unet_call(
-                            lat_in.repeat(R, 1, 1, 1), t, emb_b, controls,
-                            enc_cache=enc_cache, name="spans", key=key)
-                        eps_spans = eps_spans.float()
-                else:
-                    controls = (UNetControls(token_weights=tw_rows,
-                                             token_signs=ts_rows)
-                                if tw_rows is not None else None)
-                    if flow == "refpre" and gate:
-                        j = slot_of[i]
+        with tracing.span("rich_loop", flow=flow, **{"pass": "rich"}):
+            for i in range(S):
+                t = plan.timesteps[i]
+                gate, key = bool(inject_gates[i]), bool(key_steps[i])
+                with torch.no_grad():
+                    lat_in = sched.scale_model_input(plan, i, lat)
+                    if lat_ref is not None:
+                        ref_in = sched.scale_model_input(plan, i, lat_ref)
+                    if flow == "in_batch":
+                        x = torch.cat([lat_in, lat_in, ref_in, ref_in]
+                                      + [lat_in] * R, dim=0)
                         controls = UNetControls(
                             token_weights=tw_rows, token_signs=ts_rows,
-                            inject_gate=True,
-                            inject_qk={n: (q[j:j + 1], k[j:j + 1]) for n, (q, k)
-                                       in ref_cache["qk"].items()},
-                            inject_resnet={n: f[j:j + 1] for n, f
-                                           in ref_cache["resnet"].items()},
-                            inject_dst=(1, 1 + R))
-                    eps_all, _ = self._unet_call(
-                        torch.cat([lat_in] * (R + 2), dim=0), t, emb,
-                        controls, enc_cache=enc_cache, name="rich", key=key)
-                    eps_all = eps_all.float()
-                    eps_uncond = eps_all[0:1]
-                    eps_spans = eps_all[1:1 + R]
-                    eps_base = eps_all[R + 1:R + 2]
-                noise = composite_noise(masks, g, eps_uncond, eps_base,
-                                        eps_spans[None])
-                if lat_ref is not None:
-                    # both trajectories through one scheduler step
-                    eps_ref = eps_all[2:3] + g * (eps_all[3:4] - eps_all[2:3])
-                    pair, st = sched.step(
-                        plan, i, st, torch.cat([noise, eps_ref], dim=0),
-                        torch.cat([lat, lat_ref], dim=0))
-                    lat, lat_ref = pair[0:1], pair[1:2]
-                else:
-                    lat, st = sched.step(plan, i, st, noise, lat)
-            if guidance_gates[i]:
-                lat = self._guided(lat, noise, float(alpha_raw[i]), color)
-            if spec.inject_background > 0 and i == bg_step:
-                # background injection (region_diffusion.py:171-173); the
-                # refer trajectory after step i is the stored latent i+1
-                src = (ref_cache["traj"][min(bg_step + 1, S)][None]
-                       if flow == "refpre" else lat_ref)
-                bg = masks[-1][None]
-                lat = src * bg + lat * (1 - bg)
+                            inject_gate=gate, inject_src=3,
+                            inject_dst=(4, 4 + R))
+                        eps_all, _ = self._unet_call(x, t, emb, controls)
+                        eps_all = eps_all.float()
+                        eps_uncond, eps_base = eps_all[0:1], eps_all[1:2]
+                        eps_spans = eps_all[4:]
+                    elif flow == "in_batch_two":
+                        eps_all, aux = self._unet_call(
+                            torch.cat([lat_in, lat_in, ref_in, ref_in],
+                                      dim=0), t, emb_a,
+                            UNetControls(token_weights=tw_rows,
+                                         token_signs=ts_rows),
+                            CAPTURE_REF, enc_cache=enc_cache, name="ref",
+                            key=key)
+                        eps_all = eps_all.float()
+                        eps_uncond, eps_base = eps_all[0:1], eps_all[1:2]
+                        eps_spans = eps_all[4:]
+                        if R > 0:
+                            controls = UNetControls(
+                                inject_gate=gate,
+                                inject_qk={n: (q[3:4], k[3:4]) for n, (q, k)
+                                           in aux["self_qk"].items()},
+                                inject_resnet={
+                                    n: f[3:4] for n, f
+                                    in aux["resnet_hidden"].items()})
+                            eps_spans, _ = self._unet_call(
+                                lat_in.repeat(R, 1, 1, 1), t, emb_b, controls,
+                                enc_cache=enc_cache, name="spans", key=key)
+                            eps_spans = eps_spans.float()
+                    else:
+                        controls = (UNetControls(token_weights=tw_rows,
+                                                 token_signs=ts_rows)
+                                    if tw_rows is not None else None)
+                        if flow == "refpre" and gate:
+                            j = slot_of[i]
+                            controls = UNetControls(
+                                token_weights=tw_rows, token_signs=ts_rows,
+                                inject_gate=True,
+                                inject_qk={
+                                    n: (q[j:j + 1], k[j:j + 1])
+                                    for n, (q, k) in ref_cache["qk"].items()},
+                                inject_resnet={
+                                    n: f[j:j + 1]
+                                    for n, f in ref_cache["resnet"].items()},
+                                inject_dst=(1, 1 + R))
+                        eps_all, _ = self._unet_call(
+                            torch.cat([lat_in] * (R + 2), dim=0), t, emb,
+                            controls, enc_cache=enc_cache, name="rich",
+                            key=key)
+                        eps_all = eps_all.float()
+                        eps_uncond = eps_all[0:1]
+                        eps_spans = eps_all[1:1 + R]
+                        eps_base = eps_all[R + 1:R + 2]
+                    noise = composite_noise(masks, g, eps_uncond, eps_base,
+                                            eps_spans[None])
+                    if lat_ref is not None:
+                        # both trajectories through one scheduler step
+                        eps_ref = eps_all[2:3] + g * (eps_all[3:4]
+                                                      - eps_all[2:3])
+                        pair, st = sched.step(
+                            plan, i, st, torch.cat([noise, eps_ref], dim=0),
+                            torch.cat([lat, lat_ref], dim=0))
+                        lat, lat_ref = pair[0:1], pair[1:2]
+                    else:
+                        lat, st = sched.step(plan, i, st, noise, lat)
+                if guidance_gates[i]:
+                    lat = self._guided(lat, noise, float(alpha_raw[i]),
+                                       color)
+                if spec.inject_background > 0 and i == bg_step:
+                    # background injection (region_diffusion.py:171-173); the
+                    # refer trajectory after step i is the stored latent i+1
+                    src = (ref_cache["traj"][min(bg_step + 1, S)][None]
+                           if flow == "refpre" else lat_ref)
+                    bg = masks[-1][None]
+                    lat = src * bg + lat * (1 - bg)
         return lat
 
     def _region_masks(self, h: int, w: int) -> torch.Tensor:
@@ -704,11 +719,17 @@ class RegionDiffusion(MeshMixin):
         return per.sum()
 
     def _guided(self, lat, noise, a: float, color: dict) -> torch.Tensor:
-        with torch.enable_grad():
-            l = lat.detach().requires_grad_(True)
-            (grad,) = torch.autograd.grad(
-                self._color_loss(l, noise, a, color), l)
-        return (lat - grad * color["weight"] * color["all"]).detach()
+        """One colour-guided step: the latent moved against the gradient
+        of the colour loss, under the colour spans' latent mask."""
+        tracing.count("guided_steps")
+        with tracing.span("guided_step", device=True):
+            with torch.enable_grad():
+                l = lat.detach().requires_grad_(True)
+                with tracing.span("guided_forward"):
+                    loss = self._color_loss(l, noise, a, color)
+                with tracing.span("guided_backward"):
+                    (grad,) = torch.autograd.grad(loss, l)
+            return (lat - grad * color["weight"] * color["all"]).detach()
 
     # ------------------------------------------------ batched plain txt2img
     @torch.no_grad()

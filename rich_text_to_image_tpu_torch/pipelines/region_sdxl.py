@@ -44,6 +44,7 @@ from ..models.vae import AutoencoderKL
 from ..models.vae_tiling import sliced_decode, tiled_decode
 from ..ops.attention import make_token_weight_vectors
 from ..schedulers.euler import EulerDiscreteScheduler
+from ..utils import tracing
 from ..utils.registries import CrossAttentionLayers_XL, attn_layer_resolutions
 from ..utils.token_maps import SEG_RESOLUTION, AttnAggregates
 from ..utils.watermark import apply_watermark
@@ -166,14 +167,15 @@ class RegionDiffusionXL(RegionDiffusion):
             prompts = [prompts]
         if isinstance(negative_prompt, (list, tuple)):
             negative_prompt = negative_prompt[0] if negative_prompt else ""
-        rows = [self._encode_one(p) for p in prompts]
-        if negative_prompt == "":  # SDXL's force_zeros_for_empty_prompt
-            neg = tuple(torch.zeros_like(t) for t in rows[0])
-        else:
-            neg = self._encode_one(negative_prompt)
-        rows = [neg] + rows
-        return (torch.cat([e for e, _ in rows], dim=0),
-                torch.cat([p for _, p in rows], dim=0))
+        with tracing.span("text_encode"):
+            rows = [self._encode_one(p) for p in prompts]
+            if negative_prompt == "":  # SDXL's force_zeros_for_empty_prompt
+                neg = tuple(torch.zeros_like(t) for t in rows[0])
+            else:
+                neg = self._encode_one(negative_prompt)
+            rows = [neg] + rows
+            return (torch.cat([e for e, _ in rows], dim=0),
+                    torch.cat([p for _, p in rows], dim=0))
 
     def _get_add_time_ids(self, original_size, crops_coords_top_left,
                           target_size) -> np.ndarray:
@@ -203,16 +205,18 @@ class RegionDiffusionXL(RegionDiffusion):
             return self._decode_imgs(z, vae).float()
 
         f = self.vae_scale_factor
-        if self._vae_tiling:
-            imgs = tiled_decode(dec, latents, tile_latent=1024 // f, scale=f)
-        elif self._vae_slicing:
-            imgs = sliced_decode(dec, latents)
-        else:
-            imgs = dec(latents)
-        u8 = (imgs * 255).round().to(torch.uint8)
-        if self.watermark:
-            u8 = apply_watermark(u8)
-        return u8.cpu().numpy()
+        with tracing.span("decode", device=True):
+            if self._vae_tiling:
+                imgs = tiled_decode(dec, latents, tile_latent=1024 // f,
+                                    scale=f)
+            elif self._vae_slicing:
+                imgs = sliced_decode(dec, latents)
+            else:
+                imgs = dec(latents)
+            u8 = (imgs * 255).round().to(torch.uint8)
+            if self.watermark:
+                u8 = apply_watermark(u8)
+            return u8.cpu().numpy()
 
     def enable_vae_tiling(self):
         self._vae_tiling = True
@@ -376,7 +380,9 @@ class RegionDiffusionXL(RegionDiffusion):
         st = sched.init_state(lat.shape, self.device)
         g = float(guidance_scale)
         lat0 = lat
-        with torch.no_grad():
+        with torch.no_grad(), tracing.span(
+                "plain_loop", flow="refpre" if cache is not None else "plain",
+                **{"pass": "plain"}):
             for i in range(S):
                 if cache is not None:
                     cache["traj"][i].copy_(lat[0])
@@ -406,9 +412,11 @@ class RegionDiffusionXL(RegionDiffusion):
             cache.update(steps=slots, g=g, hw=(h, w), fp=ref_fingerprint(
                 lat0, embeds[0], embeds[1], pooled[0], pooled[1], tid))
             self.ref_cache = cache
+        with tracing.span("capture_sums"):
+            cross_sums = {r: c.cpu().numpy() for r, c in cross.items()}
         agg = AttnAggregates(
             self_sum=self_sum, self_count=len(self_layers),
-            cross_sums={r: c.cpu().numpy() for r, c in cross.items()},
+            cross_sums=cross_sums,
             cross_layer_count=sum(len(v) for v in cross_by_res.values()))
         self.attn_aggregates = agg
         return self.decode_latents(lat)
@@ -550,81 +558,86 @@ class RegionDiffusionXL(RegionDiffusion):
         lat_ref = lat if flow.startswith("in_batch") else None
         st = sched.init_state(lat.shape, dev)
         st_ref = sched.init_state(lat.shape, dev)
-        for i in range(S):
-            t = ts[i]
-            gate, key = bool(inject_gates[i]), bool(key_steps[i])
-            eps_ref = None
-            with torch.no_grad():
-                x_in = sched.scale_model_input(plan, i, lat)
-                with_ref = lat_ref is not None and not (
-                    ref_skip and not ref_gates[i])
-                if flow == "plain":
-                    eps = self._fwd(torch.cat([x_in] * (R + 2)), t,
-                                    *cond_plain, tid,
-                                    controls_for(R + 2, R + 1),
-                                    enc_cache=enc_cache, name="rich",
-                                    key=key)[0].float()
-                    eu, es, eb = eps[0:1], eps[1:1 + R], eps[R + 1:R + 2]
-                elif flow == "refpre" or not with_ref:
-                    kw = {}
-                    if flow == "refpre" and gate:
-                        j = slot_of[i]
-                        kw = dict(
-                            inject_gate=True, inject_dst=(2, 2 + R),
-                            inject_qk={n: (q[j:j + 1], k[j:j + 1]) for n, (q, k)
-                                       in ref_cache["qk"].items()},
-                            inject_resnet={n: v[j:j + 1] for n, v
-                                           in ref_cache["resnet"].items()})
-                    eps = self._fwd(torch.cat([x_in] * (R + 2)), t,
-                                    *cond_short, tid,
-                                    controls_for(R + 2, 1, **kw),
-                                    enc_cache=enc_cache, name="rich",
-                                    key=key)[0].float()
-                    eu, eb, es = eps[0:1], eps[1:2], eps[2:]
-                else:
-                    ref_in = sched.scale_model_input(plan, i, lat_ref)
-                    quad = [x_in, x_in, ref_in, ref_in]
-                    if flow == "in_batch":
-                        eps = self._fwd(
-                            torch.cat(quad + [x_in] * R), t, *cond_merged,
-                            tid, controls_for(R + 4, 1, inject_gate=gate,
-                                              inject_src=3,
-                                              inject_dst=(4, 4 + R))
-                        )[0].float()
-                        es = eps[4:]
+        with tracing.span("rich_loop", flow=flow, **{"pass": "rich"}):
+            for i in range(S):
+                t = ts[i]
+                gate, key = bool(inject_gates[i]), bool(key_steps[i])
+                eps_ref = None
+                with torch.no_grad():
+                    x_in = sched.scale_model_input(plan, i, lat)
+                    with_ref = lat_ref is not None and not (
+                        ref_skip and not ref_gates[i])
+                    if flow == "plain":
+                        eps = self._fwd(torch.cat([x_in] * (R + 2)), t,
+                                        *cond_plain, tid,
+                                        controls_for(R + 2, R + 1),
+                                        enc_cache=enc_cache, name="rich",
+                                        key=key)[0].float()
+                        eu, es, eb = eps[0:1], eps[1:1 + R], eps[R + 1:R + 2]
+                    elif flow == "refpre" or not with_ref:
+                        kw = {}
+                        if flow == "refpre" and gate:
+                            j = slot_of[i]
+                            kw = dict(
+                                inject_gate=True, inject_dst=(2, 2 + R),
+                                inject_qk={
+                                    n: (q[j:j + 1], k[j:j + 1])
+                                    for n, (q, k) in ref_cache["qk"].items()},
+                                inject_resnet={
+                                    n: v[j:j + 1]
+                                    for n, v in ref_cache["resnet"].items()})
+                        eps = self._fwd(torch.cat([x_in] * (R + 2)), t,
+                                        *cond_short, tid,
+                                        controls_for(R + 2, 1, **kw),
+                                        enc_cache=enc_cache, name="rich",
+                                        key=key)[0].float()
+                        eu, eb, es = eps[0:1], eps[1:2], eps[2:]
                     else:
-                        eps, aux = self._fwd(
-                            torch.cat(quad), t, *cond_quad, tid,
-                            controls_for(4, 1), CAPTURE_REF, enc_cache,
-                            "ref", key)
-                        eps = eps.float()
-                        es = eps[4:]
-                        if R > 0:
-                            es = self._fwd(
-                                x_in.repeat(R, 1, 1, 1), t, *cond_spans, tid,
-                                UNetControls(
-                                    inject_gate=gate,
-                                    inject_qk={n: (q[3:4], k[3:4]) for n, (q, k)
-                                               in aux["self_qk"].items()},
-                                    inject_resnet={n: v[3:4] for n, v in
-                                                   aux["resnet_hidden"].items()}),
-                                EMPTY_CAPTURE, enc_cache, "spans",
-                                key)[0].float()
-                    eu, eb = eps[0:1], eps[1:2]
-                    eps_ref = eps[2:3] + g * (eps[3:4] - eps[2:3])
-                noise = composite_noise(masks, g, eu, eb, es[None])
-                lat_new, st = sched.step(plan, i, st, noise, lat)
-                if lat_ref is not None and ref_gates[i]:
-                    # past its window the refer latent and its scheduler
-                    # state hold
-                    lat_ref, st_ref = sched.step(plan, i, st_ref, eps_ref,
-                                                 lat_ref)
-            lat = lat_new
-            if guidance_gates[i]:
-                lat = self._guided(lat, noise, float(alpha_raw[i]), color)
-            if run_ref and bg_gates[i]:
-                src = (ref_cache["traj"][min(bg_step + 1, S)][None]
-                       if flow == "refpre" else lat_ref)
-                bg = masks[-1][None]
-                lat = src * bg + lat * (1 - bg)
+                        ref_in = sched.scale_model_input(plan, i, lat_ref)
+                        quad = [x_in, x_in, ref_in, ref_in]
+                        if flow == "in_batch":
+                            eps = self._fwd(
+                                torch.cat(quad + [x_in] * R), t, *cond_merged,
+                                tid, controls_for(R + 4, 1, inject_gate=gate,
+                                                  inject_src=3,
+                                                  inject_dst=(4, 4 + R))
+                            )[0].float()
+                            es = eps[4:]
+                        else:
+                            eps, aux = self._fwd(
+                                torch.cat(quad), t, *cond_quad, tid,
+                                controls_for(4, 1), CAPTURE_REF, enc_cache,
+                                "ref", key)
+                            eps = eps.float()
+                            es = eps[4:]
+                            if R > 0:
+                                es = self._fwd(
+                                    x_in.repeat(R, 1, 1, 1), t, *cond_spans,
+                                    tid, UNetControls(
+                                        inject_gate=gate,
+                                        inject_qk={
+                                            n: (q[3:4], k[3:4]) for n, (q, k)
+                                            in aux["self_qk"].items()},
+                                        inject_resnet={
+                                            n: v[3:4] for n, v
+                                            in aux["resnet_hidden"].items()}),
+                                    EMPTY_CAPTURE, enc_cache, "spans",
+                                    key)[0].float()
+                        eu, eb = eps[0:1], eps[1:2]
+                        eps_ref = eps[2:3] + g * (eps[3:4] - eps[2:3])
+                    noise = composite_noise(masks, g, eu, eb, es[None])
+                    lat_new, st = sched.step(plan, i, st, noise, lat)
+                    if lat_ref is not None and ref_gates[i]:
+                        # past its window the refer latent and its scheduler
+                        # state hold
+                        lat_ref, st_ref = sched.step(plan, i, st_ref, eps_ref,
+                                                     lat_ref)
+                lat = lat_new
+                if guidance_gates[i]:
+                    lat = self._guided(lat, noise, float(alpha_raw[i]), color)
+                if run_ref and bg_gates[i]:
+                    src = (ref_cache["traj"][min(bg_step + 1, S)][None]
+                           if flow == "refpre" else lat_ref)
+                    bg = masks[-1][None]
+                    lat = src * bg + lat * (1 - bg)
         return lat
