@@ -44,6 +44,7 @@ from ..ops import conv as conv_ops
 from ..parallel.mesh import all_reduce_sum
 from ..parallel.tp import gather_channels
 from ..utils import tracing
+from . import unet_graphs
 from .config import UNetConfig
 
 
@@ -266,6 +267,10 @@ class ResnetBlock2D(nn.Module):
 
     def forward(self, x, temb, controls: UNetControls | None = None,
                 capture: CaptureSpec = EMPTY_CAPTURE, aux: dict | None = None):
+        rec = unet_graphs.recording()
+        if rec is not None and unet_graphs.is_island(self.layer_name,
+                                                     rec.touched):
+            return rec.island(self, (x, temb), controls, capture, aux)
         h = self.conv1(F.silu(self.norm1(x)))
         h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
         h = self.conv2(F.silu(self.norm2(h)))
@@ -366,6 +371,10 @@ class Attention(nn.Module):
 
     def forward(self, x, context=None, controls: UNetControls | None = None,
                 capture: CaptureSpec = EMPTY_CAPTURE, aux: dict | None = None):
+        rec = unet_graphs.recording()
+        if rec is not None and unet_graphs.is_island(self.layer_name,
+                                                     rec.touched):
+            return rec.island(self, (x, context), controls, capture, aux)
         is_cross = context is not None
         ctx = context if is_cross else x
         B, S, _ = x.shape
@@ -653,6 +662,11 @@ class UNet2DCondition(nn.Module):
     ``dtype`` is the compute type (bfloat16 on the card, by the precision
     policy; float32 in the CPU tests): cast the module with ``.to(dtype)``
     after loading weights, as :func:`~..weights.random_init` does.
+
+    On the card, without grad, a call replays piecewise CUDA graphs of the
+    stretches between its self-attention modules and the modules its
+    controls or capture touch (:mod:`.unet_graphs`); ``_graphs_on`` False
+    keeps every call eager (a mesh sets it; tests compare with it).
     """
 
     def __init__(self, cfg: UNetConfig):
@@ -707,6 +721,15 @@ class UNet2DCondition(nn.Module):
         self.mid_block.span_name = "unet.mid"
         self.conv_norm_out = nn.GroupNorm(cfg.norm_num_groups, prev, eps=1e-5)
         self.conv_out = nn.Conv2d(prev, cfg.out_channels, 3, padding=1)
+        self._graphs_on = True
+        self._graphs = unet_graphs.UNetGraphs()
+        self._layer_names = None
+
+    def _apply(self, fn, recurse=True):
+        # .to() and the like may move the parameters: the graphs' addresses
+        # go stale
+        self._graphs.drop()
+        return super()._apply(fn, recurse)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -773,6 +796,62 @@ class UNet2DCondition(nn.Module):
                 added_cond: dict | None = None):
         if controls is not None:
             controls.check_supported()
-        emb = self.embed_time(timesteps, sample.shape[0], added_cond)
-        enc = self.encode(sample, emb, encoder_hidden_states, controls, capture)
-        return self.decode(enc, emb, encoder_hidden_states, controls, capture)
+        eps, aux, _ = self._call(sample, timesteps, encoder_hidden_states,
+                                 controls, capture, added_cond)
+        return eps, aux
+
+    def forward_cached(self, sample, timesteps, encoder_hidden_states,
+                       controls: UNetControls | None, capture: CaptureSpec,
+                       added_cond: dict | None, cache: dict, name: str,
+                       key: bool):
+        """:meth:`forward` under encoder reuse (arXiv 2312.09608 §4): on a
+        key step ``encode`` runs and its output is kept in
+        ``cache[name]``; ``decode`` always runs, on ``cache[name]``, with
+        this step's time embedding."""
+        if controls is not None:
+            controls.check_supported()
+        eps, aux, enc = self._call(sample, timesteps, encoder_hidden_states,
+                                   controls, capture, added_cond,
+                                   None if key else cache[name], key)
+        if key:
+            cache[name] = enc
+        return eps, aux
+
+    def _call(self, sample, timesteps, ehs, controls, capture, added_cond,
+              enc=None, keep=False):
+        """(eps, aux, encode()'s output) by the graphs where they apply,
+        else eagerly."""
+        touched = unet_graphs.touched_layers(controls, capture,
+                                             INJECT_RESNET_NAME)
+        key = unet_graphs.signature(self, sample, timesteps, ehs, added_cond,
+                                    enc, keep, touched)
+        if key is not None:
+            return self._graphs.call(self, key, sample, timesteps, ehs,
+                                     controls, capture, added_cond, enc)
+        if tracing.enabled():
+            tracing.count("unet_graph",
+                          self._graph_units(touched, enc is not None),
+                          how="eager")
+        return self._run(sample, timesteps, ehs, controls, capture,
+                         added_cond, enc)
+
+    def _run(self, sample, timesteps, ehs, controls, capture, added_cond,
+             enc=None):
+        """The eager forward; ``encode`` only where ``enc`` is None."""
+        emb = (self.embed_time(timesteps, sample.shape[0]) if added_cond is None
+               else self.embed_time(timesteps, sample.shape[0], added_cond))
+        if enc is None:
+            enc = self.encode(sample, emb, ehs, controls, capture)
+        eps, aux = self.decode(enc, emb, ehs, controls, capture)
+        return eps, aux, enc
+
+    def _graph_units(self, touched, decode_only: bool) -> int:
+        """The graphable units of a call: the stretches between its eager
+        islands (:func:`~.unet_graphs.is_island`)."""
+        if self._layer_names is None:
+            self._layer_names = [
+                m.layer_name for m in self.modules()
+                if isinstance(m, (Attention, ResnetBlock2D))]
+        return 1 + sum(unet_graphs.is_island(n, touched)
+                       and not (decode_only and n.startswith("down_blocks"))
+                       for n in self._layer_names)

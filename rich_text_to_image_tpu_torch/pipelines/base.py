@@ -210,6 +210,9 @@ class MeshMixin:
         from ..parallel.mesh import shard_params
 
         self.mesh = mesh
+        # the graphs stay off: a mesh call runs its rows, collectives and
+        # sharded parameters eagerly
+        self.unet._graphs_on = mesh is None
         if mesh is not None:
             shard_params(self.unet, mesh, tp_axis)
         return self
@@ -232,15 +235,8 @@ class MeshMixin:
             if enc_cache is None:
                 return self.unet(x, t, emb, controls, capture,
                                  added_cond=added)
-            if controls is not None:
-                controls.check_supported()
-            e = (self.unet.embed_time(t, x.shape[0]) if added is None
-                 else self.unet.embed_time(t, x.shape[0], added))
-            if key:
-                enc_cache[name] = self.unet.encode(x, e, emb, controls,
-                                                   capture)
-            return self.unet.decode(enc_cache[name], e, emb, controls,
-                                    capture)
+            return self.unet.forward_cached(x, t, emb, controls, capture,
+                                            added, enc_cache, name, key)
 
         n = x.shape[0]
         tracing.count("unet_calls", rows=n)

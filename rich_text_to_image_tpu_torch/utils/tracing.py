@@ -65,6 +65,11 @@ def enable(annotate: bool = True) -> None:
     _ON, _ANNOTATE = True, bool(annotate)
 
 
+def enabled() -> bool:
+    """Whether spans and counters are being recorded."""
+    return _ON
+
+
 def disable() -> None:
     """Stop recording; what was recorded stays until :func:`report`."""
     global _ON

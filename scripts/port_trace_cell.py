@@ -33,6 +33,12 @@ sample of the cell's shapes). Then:
    idle gaps by the innermost program span (of the launch, and of the
    launch that ended the gap).
 
+Beside them: the share of the UNet's graphable units that replayed a CUDA
+graph in the windows (the ``unet_graph`` counter, ``how=replay`` over all),
+and ``peak_mem_gib`` (``max_memory_allocated``, as the benchmark reads it)
+with ``max_memory_reserved`` over the windows, which counts the graphs'
+memory pool as well.
+
 The last line of standard output is the result as JSON; the log goes to
 standard error. Imports nothing of JAX or the JAX package.
 """
@@ -58,6 +64,15 @@ def log(*a):
 # ---------------------------------------------------------------- readings
 def _mean(v):
     return sum(v) / len(v) if v else None
+
+
+def replay_share(counters: dict):
+    """The share of the UNet's graphable units that replayed a graph
+    (``unet_graph``: ``how`` = replay, capture or eager), None where the
+    counter is missing."""
+    by = counters.get("unet_graph", {})
+    total = sum(by.values())
+    return by.get("how=replay", 0) / total if total else None
 
 
 def window_read(rep: dict) -> dict:
@@ -210,6 +225,7 @@ def main(argv=None) -> int:
         + json.dumps(H.hardware()))
 
     # ---- the tracer's cost, and its reading of whole samples
+    torch.cuda.reset_peak_memory_stats(dev)
     rates, reports = {"off": [], "on": []}, []
     for r in range(args.rounds):
         for mode in (("off", "on") if r % 2 == 0 else ("on", "off")):
@@ -236,7 +252,14 @@ def main(argv=None) -> int:
                 merged["counters"][k][kk] = merged["counters"][k].get(
                     kk, 0) + c
     win = window_read(merged)
+    share = replay_share(merged["counters"])
     del merged, reports
+    gib = float(1 << 30)
+    memory = dict(peak_mem_gib=torch.cuda.max_memory_allocated(dev) / gib,
+                  max_memory_reserved_gib=(
+                      torch.cuda.max_memory_reserved(dev) / gib))
+    log(f"unet_graph replay share {share}; memory of the windows "
+        + json.dumps(memory))
 
     # ---- one sample profiled, the program's spans laid on it
     hooks = T.Spans(model)
@@ -273,6 +296,7 @@ def main(argv=None) -> int:
         on_over_off=ratios, on_over_off_median=statistics.median(ratios),
         unet_host_ms=win["unet_host_ms"], unet_device_ms=new["unet_device_ms"],
         unet_launches=new["unet_launches"], decode_ms=win["decode_ms"],
+        unet_graph_replay_share=share, **memory,
         attn_self_roofline=(100.0 * bound / new["attn_self_s"]
                             if new["attn_self_s"] > 0 else None),
         attn_roofline=(100.0 * bound / old["attn_core_s"]

@@ -54,6 +54,15 @@ def span(name, start, end, sid, parent=None, sample=1, **extra):
                 start_ns=start, end_ns=end, **extra)
 
 
+def test_replay_share_of_graphable_units(cell):
+    assert cell.replay_share({}) is None
+    assert cell.replay_share({"unet_graph": {}}) is None
+    assert cell.replay_share({"unet_graph": {
+        "how=eager": 33, "how=capture": 33, "how=replay": 264}}) == 0.8
+    assert cell.replay_share({"unet_calls": {"rows=2": 4},
+                              "unet_graph": {"how=eager": 66}}) == 0.0
+
+
 def test_window_read_means_and_counts(cell):
     rep = {"spans": [
         span("unet", 0, 30_000_000, 2, 1), span("unet", 40_000_000,
