@@ -11,8 +11,10 @@ seeds the control is read as well: the reference put in the program's
 place one precision lower than the configuration states, on the same
 states: the UNet's matrix products in fp8 (e4m3, one scale a tensor, for
 the configuration's bfloat16) and TF32 for the float32 text towers, VAE
-and colour gradient. Its numbers are the upper readings. One JSON line a
-seed on standard output.
+and colour gradient (``control`` below, for the ``unet`` family). Its
+numbers are the upper readings. One JSON line a seed on standard output.
+Every step that depends on the model family goes through the
+configuration's family module (``harness.family``).
 
 Not run by the benchmark's runs; ``benchmark/tests`` holds it at a size a
 test can hold.
@@ -33,10 +35,7 @@ from torch import nn
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from benchmark import harness  # noqa: E402
-from benchmark.recorder import Recorder  # noqa: E402
-from benchmark.reference.check import (Reference, compare, evaluate,  # noqa
-                                       subject_of)
-from benchmark.weights import draw_state  # noqa: E402
+from benchmark.reference.check import Reference  # noqa: E402
 
 FP8_MAX = 448.0  # the largest e4m3 number
 
@@ -67,11 +66,12 @@ def record_one(cfg, traffic, seed: int, device):
     """(record of one sample of the timed path, its sample seed)."""
     from rich_text_to_image_tpu_torch.cli.sample import run_sample
 
-    state = draw_state(cfg, seed, device)
-    model = harness.build_model(cfg, state, device)
+    fam = harness.family(cfg)
+    state = fam.draw_state(cfg, seed, device)
+    model = fam.build_model(cfg, state, device)
     del state
     args = harness.cli_args(cfg, traffic)
-    rec = Recorder(model)
+    rec = fam.recorder(model)
     s = harness.sample_seed(seed, 0)
     rec.start()
     run_sample(model, args, harness.sample_param(
@@ -87,18 +87,20 @@ def record_one(cfg, traffic, seed: int, device):
 
 def readings(cell: dict, seed: int, device, with_control: bool) -> dict:
     cfg, traffic, limits = cell["cfg"], cell["traffic"], cell["limits"]
+    fam = harness.family(cfg)
     t0 = time.perf_counter()
     rec, s = record_one(cfg, traffic, seed, device)
-    steps, guided = harness.checked(rec, traffic, limits, seed)
-    state = draw_state(cfg, seed, device)
-    ref = Reference(cfg, state, device)
-    outs = evaluate(ref, rec, traffic, s, guided, steps)
-    line = {"seed": seed, "program": compare(subject_of(rec), outs, rec)}
+    which = fam.checked(rec, traffic, limits, seed)
+    state = fam.draw_state(cfg, seed, device)
+    ref = fam.reference(cfg, state, device)
+    outs = fam.evaluate(ref, rec, traffic, s, which)
+    line = {"seed": seed, "program": fam.compare(fam.subject_of(rec), outs,
+                                                 rec)}
     del ref
     if with_control:
-        ctl = control(cfg, state, device)
-        line["control"] = compare(evaluate(ctl, rec, traffic, s, guided,
-                                           steps), outs, rec)
+        ctl = fam.control(cfg, state, device)
+        line["control"] = fam.compare(fam.evaluate(ctl, rec, traffic, s,
+                                                   which), outs, rec)
         del ctl
     del state, outs, rec
     gc.collect()

@@ -5,7 +5,10 @@ The cell, its configuration, its traffic and its limits are found by name:
 ``BENCHMARK.json`` names the configuration's file and the traffic mix;
 ``traffic/<traffic>.json`` holds the rich text and the CLI flags;
 ``workloads/<cell>.json`` the limits of ``correct``; ``metrics/<name>.py``
-the reader of each per-layer metric.
+the reader of each per-layer metric; ``families/<family>.py`` the steps of
+a run that depend on the configuration's model family (its ``"family"``,
+``unet`` where the file names none): the weights, the pipeline, the
+recording of a sample, the spans, the work of a sample and the comparison.
 
 The window is a closed loop with one client: samples run back to back
 through the CLI's own flow (``cli/sample.run_sample``), sample i with the
@@ -17,6 +20,7 @@ the first to the end of the last.
 
 from __future__ import annotations
 
+import functools
 import gc
 import importlib.util
 import json
@@ -31,11 +35,11 @@ import numpy as np
 import torch
 
 from . import flops as F
-from .recorder import Recorder
-from .weights import derive, draw_state
+from .weights import derive
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+FAMILIES = HERE / "families"
 FORBIDDEN = ("jax", "jaxlib", "flax", "rich_text_to_image_tpu")
 WARMUP_STEPS_PAST_CAPTURE = 2
 GIB = 1 << 30
@@ -53,6 +57,7 @@ def load_cell(name: str) -> dict:
         raise SystemExit(f"no workload {name!r} in BENCHMARK.json")
     conf = next(c for c in spec["configs"] if c["name"] == cell["config"])
     cfg = json.loads((ROOT / conf["file"]).read_text())
+    family(cfg)  # a family with no file fails here, before any work
     traffic = json.loads(
         (HERE / "traffic" / f"{cell['traffic']}.json").read_text())
     limits = json.loads((HERE / "workloads" / f"{name}.json").read_text())
@@ -66,6 +71,28 @@ def load_cell(name: str) -> dict:
                  if mine(m) and m["moves"] in e2e_names]
     return dict(name=name, cell=cell, cfg=cfg, traffic=traffic,
                 limits=limits, e2e=e2e, per_layer=per_layer)
+
+
+@functools.cache
+def load_module(path: Path):
+    """The Python file ``path``, loaded once a process (and put in
+    ``sys.modules``, which a dataclass of the file looks itself up in)."""
+    spec = importlib.util.spec_from_file_location(
+        f"_bench_{path.parent.name}_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def family(cfg: dict):
+    """The module of the configuration's model family,
+    ``families/<family>.py``: ``unet`` where ``cfg`` names none."""
+    path = FAMILIES / f"{cfg.get('family', 'unet')}.py"
+    if not path.is_file():
+        raise SystemExit(f"configuration {cfg.get('name')!r} names a model "
+                         f"family with no file: {path}")
+    return load_module(path)
 
 
 def port_configs(cfg: dict):
@@ -294,12 +321,7 @@ def forbidden_modules() -> list:
 def read_metric(name: str, ctx: dict):
     """The per-layer metric ``name`` from its reader,
     ``metrics/<name>.py``."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"_bench_metric_{name}",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read(ctx)
+    return load_module(HERE / "metrics" / f"{name}.py").read(ctx)
 
 
 # ---------------------------------------------------------------- correctness
@@ -324,14 +346,13 @@ def checked(rec, traffic, limits, run_seed):
 
 def check(cfg, traffic, limits, rec, run_seed, sample_seed_, device):
     """The numbers of the checked sample against the reference."""
-    from .reference.check import Reference, compare, evaluate, subject_of
-
-    state = draw_state(cfg, run_seed, device)
-    ref = Reference(cfg, state, device)
+    fam = family(cfg)
+    state = fam.draw_state(cfg, run_seed, device)
+    ref = fam.reference(cfg, state, device)
     del state
-    steps, guided = checked(rec, traffic, limits, run_seed)
-    outs = evaluate(ref, rec, traffic, sample_seed_, guided, steps)
-    return compare(subject_of(rec), outs, rec)
+    which = fam.checked(rec, traffic, limits, run_seed)
+    outs = fam.evaluate(ref, rec, traffic, sample_seed_, which)
+    return fam.compare(fam.subject_of(rec), outs, rec)
 
 
 def verdict(nums: dict, limits: dict):
@@ -359,16 +380,17 @@ def run(args, t_start: float) -> int:
 def run_cell(cell: dict, args, t_start: float, dev) -> int:
     """Everything of a run after the look for the card."""
     cfg, traffic, limits = cell["cfg"], cell["traffic"], cell["limits"]
+    fam = family(cfg)
 
     # ---- set-up: weights from the seed, the program's pipeline, warm-up
     t_c = time.perf_counter()
     torch.empty(1, device=dev)  # the card's context
     sync(dev)
     t_d = time.perf_counter()
-    state = draw_state(cfg, args.seed, dev, log)
+    state = fam.draw_state(cfg, args.seed, dev, log)
     sync(dev)
     t_b = time.perf_counter()
-    model = build_model(cfg, state, dev)
+    model = fam.build_model(cfg, state, dev)
     del state
     sync(dev)
     log(f"set-up: {t_c - t_start:.3f} s of imports, {t_d - t_c:.3f} s for "
@@ -385,8 +407,9 @@ def run_cell(cell: dict, args, t_start: float, dev) -> int:
     sync(dev)
     log(f"warm-up: one sample of {warm} steps in "
         f"{time.perf_counter() - t_w:.3f} s")
-    recorder = Recorder(model)
-    timer = GuidedTimer(model) if args.trace else None
+    recorder = fam.recorder(model)
+    timer = (GuidedTimer(model) if args.trace and hasattr(model, "_guided")
+             else None)
     setup_s = time.perf_counter() - t_start
     log(f"setup_s {setup_s:.4f}")
 
@@ -465,10 +488,9 @@ def trace_metrics(model, cargs, cfg, traffic, seed, samples, span, timer):
     from torch.autograd.profiler import record_function
 
     from . import trace as T
-    from .reference.check import sample_inputs
 
-    inp = sample_inputs(traffic)
-    guided_ms = timer.ms()
+    fam = family(cfg)
+    guided_ms = timer.ms() if timer is not None else []
     mean_s = span / len(samples)
     steps = cfg["pipeline"]["steps"]
     clock = {}
@@ -492,7 +514,7 @@ def trace_metrics(model, cargs, cfg, traffic, seed, samples, span, timer):
         f"{d['window_s'] / mean_s - 1:.4f}); {d['n_device_ops']} device "
         f"ops of kinds {json.dumps(d['kinds'])}, busy {d['busy_s']:.4f} s")
     # the spans: a sample with the host's operators and the spans as well
-    spans = T.Spans(model)
+    spans = fam.spans(model)
     a = time.perf_counter()
     _, events = T.profiled(one("profiled-spans"))
     b = time.perf_counter()
@@ -510,11 +532,9 @@ def trace_metrics(model, cargs, cfg, traffic, seed, samples, span, timer):
         f"{r['n_unlaunched']} without a launch found, {r['n_attn_spans']} "
         f"attn1_core spans; the host clock's start against the span's: "
         f"{(t0 - clock['profiled-spans'][0]) / 1e6:.3f} ms")
-    fl = F.sample_flops(cfg, traffic, inp)
-    bound = F.attn_bound_seconds(cfg, traffic, inp)
+    fl, bound, calls = fam.work(cfg, traffic)
     log(f"work of one sample: {fl:.6e} FLOPs; attention bound {bound:.6f} s; "
-        f"attention calls (count, B, H, S, d, capture): "
-        + json.dumps(F.attn_calls(cfg, traffic, inp)))
+        f"attention calls (count, B, H, S, d, capture): " + json.dumps(calls))
     return dict(samples=samples, window_span_s=span, flops_per_sample=fl,
                 peak_flops=F.PEAK_FLOPS, attn_bound_s=bound,
                 attn_core_s=r["attn_core_s"], busy_s=d["busy_s"],

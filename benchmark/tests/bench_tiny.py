@@ -63,10 +63,11 @@ def tiny_cell(traffic: str, xl: bool = False) -> dict:
         e2e=spec["end_to_end"], per_layer=[])
 
 
-def run_tiny(cell: dict, seed: int = 2 ** 31 + 12345, seconds: float = 0.0):
+def run_tiny(cell: dict, seed: int = 2 ** 31 + 12345, seconds: float = 0.0,
+             trace: int = 0):
     """``run_cell`` on the CPU (the look for a card skipped); returns (rc,
     the result line as a dict, or None)."""
-    args = types.SimpleNamespace(seed=seed, seconds=seconds, trace=0)
+    args = types.SimpleNamespace(seed=seed, seconds=seconds, trace=trace)
     buf = io.StringIO()
     with redirect_stdout(buf):
         rc = harness.run_cell(cell, args, time.perf_counter(),

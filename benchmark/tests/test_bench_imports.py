@@ -32,9 +32,15 @@ def test_no_file_of_the_benchmark_imports_jax():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for p in (BENCH / "reference").glob("*.py"):
+    # every file under reference/, a family's copy in a folder of its own
+    # too; a relative import stays inside reference/
+    ref = BENCH / "reference"
+    for p in ref.rglob("*.py"):
         assert not _imports(p) & (FORBIDDEN | {"rich_text_to_image_tpu_torch",
                                                "benchmark"}), p
+        depth = len(p.relative_to(ref).parts)
+        assert all(n.level <= depth for n in ast.walk(ast.parse(p.read_text()))
+                   if isinstance(n, ast.ImportFrom)), p
 
 
 def test_a_run_loads_no_jax(tmp_path):
