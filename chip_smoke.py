@@ -389,6 +389,11 @@ ATTN_CASES = [
     ("K1_attn_fwd_64x64", "fwd", 2, 20, 1024, 64, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", _RICH, 20, 1024, 64, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", 2, 20, 1000, 64, "full", {}),
+    # FLUX.1's joint attention, [512 text ; 4,096 image] tokens, 24 heads of
+    # 128: the plain pass's row and the rich pass's R + 1 = 2
+    ("K1_attn_fwd_64x64", "fwd", 1, 24, 4608, 128, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", 2, 24, 4608, 128, "full", {}),
+    ("K1_attn_fwd_64x64", "fwd", 1, 4, 1000, 120, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", DEMO_RICH, 10, 4096, 64, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", DEMO_RICH, 20, 1024, 64, "full", {}),
     ("K1_attn_fwd_64x64", "fwd", BENCH_RICH, 10, 4096, 64, "full", {}),
@@ -409,6 +414,8 @@ ATTN_CASES = [
     ("K3_attn_avgp_32x32", "avgp", 2, 8, 1024, 160, "avgp", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 20, 1024, 64, "avgp", {}),
     ("K3_attn_avgp_32x32", "avgp", 2, 20, 1000, 64, "avgp", {}),
+    ("K3_attn_avgp_32x32", "avgp", 1, 24, 4608, 128, "avgp", {}),
+    ("K3_attn_avgp_32x32", "avgp", 1, 4, 1000, 120, "avgp", {}),
 ] + [
     (name, "fwd", b, 8, s, d, bucket, {})
     for b in EVAL_BATCHES

@@ -17,6 +17,10 @@ default, SD at 512x512 under PNDM; ``--scheduler`` takes pndm, ddim, dpm or
 euler; the turbo knobs ``--encoder_reuse``, ``--encoder_schedule``,
 ``--guidance_downsample`` and ``--bf16_guidance`` are the JAX CLI's.
 ``--height`` / ``--width`` take any multiple of 64 (768x768, 512x768, ...).
+``--model FLUX`` runs FLUX.1-dev (``pipelines/region_flux.py``) at 1024x1024
+under flow-matching Euler (``--scheduler flow_euler``), ``--guidance_weight``
+being its distilled guidance (3.5 where not given); it refuses colour spans,
+font sizes, injection, encoder reuse, a negative prompt and ``--mesh``.
 Images are written as PNG, and every run writes the segmentation and
 token-map figures beside them; ``--save_attn`` also writes the aggregated
 attention maps under ``maps/``. ``--bf16_vae`` decodes SDXL's images in
@@ -67,11 +71,13 @@ def make_scheduler(name):
     if name is None:
         return None
     from ..schedulers import (DDIMScheduler, DPMSolverMultistepScheduler,
-                              EulerDiscreteScheduler, PNDMScheduler)
+                              EulerDiscreteScheduler, FlowMatchEulerScheduler,
+                              PNDMScheduler)
 
     return {"pndm": PNDMScheduler, "ddim": DDIMScheduler,
             "dpm": DPMSolverMultistepScheduler,
-            "euler": EulerDiscreteScheduler}[name]()
+            "euler": EulerDiscreteScheduler,
+            "flow_euler": FlowMatchEulerScheduler}[name]()
 
 
 def build_model(args):
@@ -89,6 +95,12 @@ def build_model(args):
     if args.model == "SD":
         from ..pipelines.region_sd import RegionDiffusion as cls
         what = "SD-1.5"
+    elif args.model == "FLUX":
+        from ..pipelines.region_flux import RegionFlux as cls
+        what = "FLUX.1-dev"
+        if args.checkpoint_dir:
+            raise SystemExit("--model FLUX: no checkpoint loader yet; use "
+                             "--random_weights")
     else:
         from ..pipelines.region_sdxl import RegionDiffusionXL as cls
         what = "SDXL"
@@ -234,8 +246,43 @@ def trace_sample(model, args, param, save=True):
     return path, spans
 
 
+# What the FLUX.1 path does not run yet, each a later item of ROADMAP.md's
+# Queue D: (what, whether the flags ask for it)
+_FLUX_REFUSED = (
+    ("colour spans (colour guidance)",
+     lambda a, p: bool(p is not None and p.color_text_prompts)),
+    ("font-size spans (token weights)",
+     lambda a, p: bool(p is not None and p.size_text_prompts_and_sizes)),
+    ("--inject_selfattn > 0", lambda a, p: a.inject_selfattn > 0),
+    ("--inject_background > 0", lambda a, p: a.inject_background > 0),
+    ("--encoder_reuse (a UNet's down path)", lambda a, p: a.encoder_reuse != 1),
+    ("a negative prompt (the guidance is distilled: no CFG)",
+     lambda a, p: bool(a.negative_prompt)),
+    ("--mesh", lambda a, p: a.mesh is not None),
+)
+
+
 def check_args(args) -> None:
     """Exit with a message on flags this port does not cover yet."""
+    if args.model == "FLUX":
+        from ..utils import richtext
+
+        if args.scheduler not in (None, "flow_euler"):
+            raise SystemExit(f"--model FLUX: --scheduler {args.scheduler}: "
+                             "FLUX.1 samples by flow matching "
+                             "(--scheduler flow_euler)")
+        try:
+            parsed = richtext.parse_json(json.loads(args.rich_text_json))
+        except (ValueError, TypeError, KeyError):
+            parsed = None
+        for what, asks in _FLUX_REFUSED:
+            if asks(args, parsed):
+                raise SystemExit(
+                    f"--model FLUX: {what} is not on the FLUX.1 path yet "
+                    "(ROADMAP.md, Queue D #5: FLUX.1's colour guidance, font "
+                    "size and injection)")
+    elif args.scheduler == "flow_euler":
+        raise SystemExit("--scheduler flow_euler is FLUX.1's (--model FLUX)")
     if args.model == "SD" and args.scheduler == "euler":
         # Euler's timesteps are floats; the JAX package's rich pass indexes
         # alphas_cumprod with them and raises
@@ -247,8 +294,20 @@ def check_args(args) -> None:
             "rich pass runs under Euler)")
 
 
+class _Parser(argparse.ArgumentParser):
+    """Fills ``--guidance_weight`` left unset with the model's default:
+    3.5 for FLUX.1-dev (its distilled guidance, its model card's), else
+    CFG's 8.5."""
+
+    def parse_args(self, *a, **k):
+        args = super().parse_args(*a, **k)
+        if args.guidance_weight is None:
+            args.guidance_weight = 3.5 if args.model == "FLUX" else 8.5
+        return args
+
+
 def make_parser():
-    p = argparse.ArgumentParser()
+    p = _Parser()
     p.add_argument("--run_dir", type=str, default="results/")
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--width", type=int, default=None)
@@ -257,8 +316,10 @@ def make_parser():
     p.add_argument("--rich_text_json", type=str, default=DEFAULT_RICH_TEXT)
     p.add_argument("--negative_prompt", type=str, default="")
     p.add_argument("--model", type=str, default="SD",
-                   choices=["SD", "SDXL", "AnimeXL"])
-    p.add_argument("--guidance_weight", type=float, default=8.5)
+                   choices=["SD", "SDXL", "AnimeXL", "FLUX"])
+    # CFG's weight; FLUX.1's distilled guidance under --model FLUX (None:
+    # 8.5, or 3.5 for FLUX)
+    p.add_argument("--guidance_weight", type=float, default=None)
     p.add_argument("--color_guidance_weight", type=float, default=0.5)
     p.add_argument("--inject_selfattn", type=float, default=0.0)
     p.add_argument("--segment_threshold", type=float, default=0.3)
@@ -272,7 +333,7 @@ def make_parser():
     p.add_argument("--bf16_vae", action="store_true")
     p.add_argument("--save_attn", action="store_true")
     p.add_argument("--scheduler", type=str, default=None,
-                   choices=["pndm", "ddim", "dpm", "euler"])
+                   choices=["pndm", "ddim", "dpm", "euler", "flow_euler"])
     p.add_argument("--bf16_guidance", action="store_true")
     p.add_argument("--no_ref_precompute", action="store_true")
     p.add_argument("--guidance_downsample", type=int, default=1)

@@ -27,7 +27,8 @@
 // an online softmax in fp32 (exp2, log2(e) folded into the scale). The three
 // JAX kernels that compute softmax(Q K^T) V are one function, so one kernel,
 // attn_fwd_kernel, templated on the padded head dim (40 -> 48, 80 -> 80, 160
-// for the 1280-channel level at sizes above 512^2; SDXL's 64 as it is),
+// for the 1280-channel level at sizes above 512^2; SDXL's 64 and FLUX.1's
+// 128 as they are),
 // serves them all; the wrapper keeps the JAX dispatch only to count
 // launches per JAX kernel.
 //   * both products are wgmma (wgmma.cuh). S = Q K^T reads K from shared
@@ -147,6 +148,7 @@ __device__ __forceinline__ void pv_mma(float* o, const uint32_t a[4],
   if constexpr (DP == 48) wgmma_rs_n48<1>(o, a, dv, 1);
   else if constexpr (DP == 64) wgmma_rs_n64<1>(o, a, dv, 1);
   else if constexpr (DP == 80) wgmma_rs_n80<1>(o, a, dv, 1);
+  else if constexpr (DP == 128) wgmma_rs_n128<1>(o, a, dv, 1);
   else wgmma_rs_n160<1>(o, a, dv, 1);
 }
 
@@ -593,8 +595,8 @@ cudaError_t launch_fwd_tile(const bf16* q, const bf16* k, const bf16* v,
 // block_m: 64, 128 or 192 query rows a CTA (one to three multiplying
 // warpgroups); block_k: the keys a tile that measured fastest for the padded
 // head dim and block_m (_FWD_TILES in ops/attention.py names them; other
-// pairs are not built). Three warpgroups at DP = 160 would not fit the
-// registers. lse: null, or where the rows' log2-sum-exp go.
+// pairs are not built). Three warpgroups above DP = 80 (128, 160) would
+// not fit the registers. lse: null, or where the rows' log2-sum-exp go.
 template <int DP>
 cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                        float* lse, int B, int H, int sq, int skv, int d,

@@ -65,14 +65,15 @@ struct Strides {
 
 // The padded head dims the attention kernels are instantiated for: a head
 // dim d (a multiple of 8, at most 160) runs at the smallest of them >= d.
-// They are the padded head dims of the SD-1.5 UNet (40, 80, 160) and the
+// They are the padded head dims of the SD-1.5 UNet (40, 80, 160), the
 // SDXL UNet's 64 (every SDXL head), which is one 128-byte swizzle row of
-// bf16 and so needs no padding; another model's head dim gets its own
-// instantiation when a path brings it.
+// bf16 and so needs no padding, and FLUX.1's 128 (two such rows); another
+// model's head dim gets its own instantiation when a path brings it.
 #define RTT_DISPATCH(FN, ...)                                        \
   if (d <= 48) return (int)FN<48>(__VA_ARGS__);                      \
   if (d <= 64) return (int)FN<64>(__VA_ARGS__);                      \
   if (d <= 80) return (int)FN<80>(__VA_ARGS__);                      \
+  if (d <= 128) return (int)FN<128>(__VA_ARGS__);                    \
   if (d <= 160) return (int)FN<160>(__VA_ARGS__);                    \
   return (int)cudaErrorInvalidValue;
 

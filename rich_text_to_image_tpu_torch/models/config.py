@@ -1,4 +1,5 @@
-"""Model architecture configs (SD-1.5, SDXL, and tiny test variants).
+"""Model architecture configs (SD-1.5, SDXL, FLUX.1-dev, and tiny test
+variants).
 
 Config values mirror the HF checkpoint configs the reference loads
 (runwayml/stable-diffusion-v1-5, stabilityai/stable-diffusion-xl-base-1.0 —
@@ -154,6 +155,11 @@ class VAEConfig:
     layers_per_block: int = 2
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
+    # FLUX.1's VAE: latents are (z - shift) * scale, and it has no 1x1
+    # quant convs around the latent
+    shift_factor: float = 0.0
+    use_quant_conv: bool = True
+    use_post_quant_conv: bool = True
 
 
 SD15_VAE = VAEConfig()
@@ -162,6 +168,12 @@ TINY_VAE = VAEConfig(
     block_out_channels=(16, 32), layers_per_block=1, norm_num_groups=8,
     scaling_factor=0.18215,
 )
+FLUX_VAE = VAEConfig(latent_channels=16, scaling_factor=0.3611,
+                     shift_factor=0.1159, use_quant_conv=False,
+                     use_post_quant_conv=False)
+TINY_FLUX_VAE = dataclasses.replace(
+    FLUX_VAE, block_out_channels=(16, 32), layers_per_block=1,
+    norm_num_groups=8)
 
 
 # --------------------------------------------------------------------- CLIP
@@ -212,3 +224,60 @@ class CLIPVisionConfig:
 
 
 CLIP_VIT_B32_VISION = CLIPVisionConfig()
+
+
+# -------------------------------------------------------------------- FLUX.1
+@dataclasses.dataclass(frozen=True)
+class FluxConfig:
+    """``FluxTransformer2DModel`` (black-forest-labs/FLUX.1-dev,
+    transformer/config.json): 19 double-stream blocks (image and text with
+    their own weights, one joint attention), 38 single-stream blocks, 24
+    heads of 128, 2x2 patches of the 16-channel latent (64 inputs)."""
+
+    in_channels: int = 64
+    num_layers: int = 19
+    num_single_layers: int = 38
+    attention_head_dim: int = 128
+    num_attention_heads: int = 24
+    joint_attention_dim: int = 4096
+    pooled_projection_dim: int = 768
+    guidance_embeds: bool = True
+    axes_dims_rope: Sequence[int] = (16, 56, 56)
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+
+FLUX_DEV = FluxConfig()
+TINY_FLUX = FluxConfig(num_layers=1, num_single_layers=2,
+                       attention_head_dim=32, num_attention_heads=2,
+                       joint_attention_dim=32, pooled_projection_dim=32,
+                       axes_dims_rope=(8, 12, 12))
+
+
+@dataclasses.dataclass(frozen=True)
+class T5EncoderConfig:
+    """T5 v1.1's encoder (google/t5-v1_1-xxl, FLUX.1's text_encoder_2):
+    gated GELU (tanh) feed-forward, RMS layer norms, a bucketed relative
+    position bias computed by the first layer and shared by all, no 1/sqrt(d)
+    on the scores, untied head (the encoder has none)."""
+
+    vocab_size: int = 32128
+    d_model: int = 4096
+    d_kv: int = 64
+    d_ff: int = 10240
+    num_layers: int = 24
+    num_heads: int = 64
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_epsilon: float = 1e-6
+    max_length: int = 512  # FluxPipeline's max_sequence_length
+
+
+T5_XXL = T5EncoderConfig()
+TINY_T5 = T5EncoderConfig(vocab_size=600, d_model=32, d_kv=8, d_ff=64,
+                          num_layers=2, num_heads=4, max_length=128)
+# FLUX.1's text_encoder: CLIP ViT-L/14's text tower, read for its pooled row
+FLUX_CLIP = SD15_TEXT
+TINY_FLUX_CLIP = dataclasses.replace(TINY_TEXT, hidden_size=32)

@@ -149,30 +149,44 @@ class AutoencoderKL(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels,
-                                    2 * cfg.latent_channels, 1)
-        self.post_quant_conv = nn.Conv2d(cfg.latent_channels,
-                                         cfg.latent_channels, 1)
+        # FLUX.1's VAE has neither 1x1 conv (use_*quant_conv false); a
+        # config without the fields (the JAX package's) has both
+        self.quant_conv = (nn.Conv2d(2 * cfg.latent_channels,
+                                     2 * cfg.latent_channels, 1)
+                           if getattr(cfg, "use_quant_conv", True) else None)
+        self.post_quant_conv = (
+            nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+            if getattr(cfg, "use_post_quant_conv", True) else None)
+        self.shift_factor = getattr(cfg, "shift_factor", 0.0)
 
     def encode_moments(self, x):
         """Pixels in [-1, 1], NHWC -> (mean, logvar), each NHWC
         [B, h, w, latent], logvar clamped to [-30, 20]."""
-        moments = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2)))
+        moments = self.encoder(x.permute(0, 3, 1, 2))
+        if self.quant_conv is not None:
+            moments = self.quant_conv(moments)
         mean, logvar = moments.permute(0, 2, 3, 1).chunk(2, dim=-1)
         return mean, logvar.clamp(-30.0, 20.0)
 
     def encode(self, x, generator: torch.Generator | None = None):
-        """Pixels in [-1, 1], NHWC -> *scaled* latent NHWC: a sample drawn
-        with ``generator``, or the mean when it is None."""
+        """Pixels in [-1, 1], NHWC -> *scaled* latent NHWC, (z - shift) x
+        scale: a sample drawn with ``generator``, or the mean when it is
+        None."""
         mean, logvar = self.encode_moments(x)
         if generator is not None:
             b, h, w, c = mean.shape  # drawn in the encoder's NCHW layout
             mean = mean + torch.exp(0.5 * logvar) * torch.randn(
                 (b, c, h, w), generator=generator, device=mean.device,
                 dtype=mean.dtype).permute(0, 2, 3, 1)
-        return mean * self.cfg.scaling_factor
+        return (mean - self.shift_factor) * self.cfg.scaling_factor
+
+    def unscale(self, latents):
+        """Scaled latents -> the decoder's: latents / scale + shift."""
+        return latents / self.cfg.scaling_factor + self.shift_factor
 
     def decode(self, z):
         """*Unscaled* latent NHWC -> pixels in [-1, 1], NHWC."""
-        x = self.decoder(self.post_quant_conv(z.permute(0, 3, 1, 2)))
-        return x.permute(0, 2, 3, 1)
+        z = z.permute(0, 3, 1, 2)
+        if self.post_quant_conv is not None:
+            z = self.post_quant_conv(z)
+        return self.decoder(z).permute(0, 2, 3, 1)

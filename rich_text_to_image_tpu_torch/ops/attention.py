@@ -248,7 +248,8 @@ _SMS = 132  # streaming multiprocessors of an H100
 
 def _padded(d: int) -> int:
     # the head dim the kernels are instantiated for (RTT_DISPATCH)
-    return 48 if d <= 48 else 64 if d <= 64 else 80 if d <= 80 else 160
+    return (48 if d <= 48 else 64 if d <= 64 else 80 if d <= 80
+            else 128 if d <= 128 else 160)
 
 
 # The tiles ``csrc/attention.cu launch_fwd`` builds, by padded head dim:
@@ -258,6 +259,7 @@ def _padded(d: int) -> int:
 _FWD_TILES = {48: {64: 64, 128: 128, 192: 64},
               64: {64: 64, 128: 64, 192: 64},
               80: {64: 128, 128: 64, 192: 64},
+              128: {64: 64, 128: 64},
               160: {64: 64, 128: 64}}
 
 # What a wave of attn_fwd_kernel's CTAs costs, by query rows a CTA, in units

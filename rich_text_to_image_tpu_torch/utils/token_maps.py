@@ -37,16 +37,22 @@ class AttnAggregates:
         tensor, left on the device that produced it). N = rows x columns of
         that level's grid, which has the latent's aspect.
     self_count: number of layers in self_sum.
-    cross_sums: {rows r: [r * columns, 77]} — per-resolution sums over
+    cross_sums: {rows r: [r * columns, T]} — per-resolution sums over
         (registry layers x steps >= agg_start_step) of the cond row's
-        head-averaged cross-attention probabilities (numpy).
+        head-averaged cross-attention probabilities (numpy), over the T
+        positions of the text tower's row (77 for CLIP, 512 for FLUX.1's
+        T5).
     cross_layer_count: number of cross layers contributing.
+    first_token: the row position of the prompt's first token: 1 after
+        CLIP's start token, 0 for T5, which has none. A span's 1-based
+        token id i is position i - 1 + first_token.
     """
 
     self_sum: torch.Tensor | np.ndarray
     self_count: int
     cross_sums: Mapping[int, np.ndarray]
     cross_layer_count: int
+    first_token: int = 1
     # (seed, num_segments, n_init) -> labels: the reference flow segments
     # the same affinity twice per sample (colour spans, then region spans)
     cluster_cache: dict = dataclasses.field(
@@ -106,10 +112,13 @@ def get_token_maps(
             ).cpu().numpy().reshape(res, res_w)
             agg.cluster_cache[key] = clusters
 
-    # ---- cross-attention maps -> res^2, averaged over layers
-    cross = np.zeros((res, res_w, 77), dtype=np.float32)
+    # ---- cross-attention maps -> res^2, averaged over layers; as wide as
+    # the text tower's row (CLIP's 77 where no layer was summed)
+    width = max((np.shape(m)[-1] for m in agg.cross_sums.values()),
+                default=77)
+    cross = np.zeros((res, res_w, width), dtype=np.float32)
     for r, m in agg.cross_sums.items():
-        m = np.asarray(m, dtype=np.float32).reshape(r, -1, 77)
+        m = np.asarray(m, dtype=np.float32).reshape(r, -1, width)
         if r != res:
             m = _resize_np(m.transpose(2, 0, 1),
                            (res, res_w)).transpose(1, 2, 0)
@@ -119,7 +128,7 @@ def get_token_maps(
     # ---- per-span min-max normalisation (attention_utils.py:296-304)
     span_maps = []
     for token_ids in obj_tokens:
-        span = cross[:, :, np.asarray(token_ids)]
+        span = cross[:, :, np.asarray(token_ids) - 1 + agg.first_token]
         lo = span.min(axis=(0, 1), keepdims=True)
         hi = span.max(axis=(0, 1), keepdims=True)
         span_maps.append((span - np.abs(lo)) / (hi - lo + 1e-12))

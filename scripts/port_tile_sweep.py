@@ -43,7 +43,11 @@ ATTN_SHAPES = [(2, 8, 4096, 40), (4, 8, 4096, 40), (6, 8, 4096, 40),
                # the plain pass's batch 2 and the rich passes' R+2, R+4
                (2, 10, 4096, 64), (4, 10, 4096, 64), (6, 10, 4096, 64),
                (2, 20, 1024, 64), (4, 20, 1024, 64), (6, 20, 1024, 64),
-               (2, 20, 1000, 64)]
+               (2, 20, 1000, 64),
+               # FLUX.1 at 1024^2: the joint attention over [512 text ; 4096
+               # image] tokens, head dim 128, at the plain pass's one row and
+               # the rich pass's R + 1 = 2
+               (1, 24, 4608, 128), (2, 24, 4608, 128)]
 PAVG_SHAPES = [(2, 8, 1024, 80), (2, 8, 1000, 80), (2, 8, 2304, 80),
                (2, 8, 576, 160), (2, 8, 1024, 160), (4, 8, 1024, 80),
                (1, 8, 1024, 80), (2, 8, 4096, 40), (2, 20, 1024, 64),

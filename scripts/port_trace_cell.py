@@ -16,9 +16,10 @@ sample of the cell's shapes). Then:
    images a minute of each window.
 2. From the windows with the tracer on: ``unet_host_ms``, the host
    milliseconds of a ``unet`` span (one UNet call, nothing synchronised
-   inside), and ``decode_ms``, the CUDA-event milliseconds of a ``decode``
-   span, means over the spans; the spans, counters and host seconds of each
-   span name a sample.
+   inside; ``dit_host_ms`` of a ``dit`` span, one FLUX.1 transformer call,
+   in a cell of the ``flux`` family), and ``decode_ms``, the CUDA-event
+   milliseconds of a ``decode`` span, means over the spans; the spans,
+   counters and host seconds of each span name a sample.
 3. One more sample profiled with the host's and the card's activity, the
    tracer on without ranges (``enable(annotate=False)``) and the
    benchmark's span hooks installed, so that the benchmark's reading
@@ -27,9 +28,11 @@ sample of the cell's shapes). Then:
    their host times (the profiler's clock): ``unet_device_ms``, the device
    busy time (union) of the operations launched inside ``unet`` spans over
    their number; ``unet_launches``, those operations over the same number;
-   ``attn_self_roofline``, the attention bound of ``attn_roofline``
-   (``benchmark/flops.attn_bound_seconds``) over the device time of the
-   operations launched inside ``attn_self`` spans; the device time and the
+   ``attn_self_roofline``, the attention bound of ``attn_roofline`` (the
+   family's ``work``) over the device time of the operations launched
+   inside ``attn_self`` spans; in a ``flux`` cell ``dit_device_ms``,
+   ``dit_launches`` and ``attn_joint_roofline`` the same over ``dit`` and
+   ``attn_joint`` spans; the device time and the
    idle gaps by the innermost program span (of the launch, and of the
    launch that ended the gap).
 
@@ -75,9 +78,10 @@ def replay_share(counters: dict):
     return by.get("how=replay", 0) / total if total else None
 
 
-def window_read(rep: dict) -> dict:
-    """The tracer's report of whole samples: the means over its spans, and
-    what a sample holds (spans by name, counters, host seconds by name)."""
+def window_read(rep: dict, call: str = "unet") -> dict:
+    """The tracer's report of whole samples: the means over its spans (the
+    denoiser's calls being the spans ``call``), and what a sample holds
+    (spans by name, counters, host seconds by name)."""
     by = defaultdict(list)
     for s in rep["spans"]:
         by[s["name"]].append(s)
@@ -91,8 +95,8 @@ def window_read(rep: dict) -> dict:
 
     return dict(
         samples=n,
-        unet_host_ms=_mean([dur_ms(s) for s in by["unet"]]),
-        unet_event_ms=dev_ms("unet"), decode_ms=dev_ms("decode"),
+        **{f"{call}_host_ms": _mean([dur_ms(s) for s in by[call]]),
+           f"{call}_event_ms": dev_ms(call)}, decode_ms=dev_ms("decode"),
         guided_step_ms=dev_ms("guided_step"),
         spans_a_sample={k: len(v) / n for k, v in sorted(by.items())}
         if n else {},
@@ -114,12 +118,14 @@ def _inside(intervals):
     return test
 
 
-def program_read(events, spans, t0: int, t1: int) -> dict:
+def program_read(events, spans, t0: int, t1: int, call: str = "unet",
+                 attn: str = "attn_self") -> dict:
     """The device's operations in [t0, t1) (ns) of a profile against the
     program's spans (``tracing.report()["spans"]``, host times on the
     profiler's clock): each operation belongs to the spans around its
-    launch. Device events that mirror a host range (the benchmark's span
-    names, the program's) are not operations."""
+    launch; ``call`` names the denoiser's call spans, ``attn`` its
+    attention spans. Device events that mirror a host range (the
+    benchmark's span names, the program's) are not operations."""
     import torch
 
     from benchmark import trace as T
@@ -139,9 +145,8 @@ def program_read(events, spans, t0: int, t1: int) -> dict:
                 device.append((max(s, t0), min(e, t1), ev.correlation_id()))
         elif name.startswith(("cuda", "cu")) and ev.correlation_id():
             launches[ev.correlation_id()] = s
-    of = {k: [(s, e) for s, e, n in iv if n == k] for k in ("unet",
-                                                            "attn_self")}
-    in_unet, in_attn = _inside(of["unet"]), _inside(of["attn_self"])
+    of = {k: [(s, e) for s, e, n in iv if n == k] for k in (call, attn)}
+    in_unet, in_attn = _inside(of[call]), _inside(of[attn])
     launched = [launches.get(c) for _, _, c in device]
     labels = T.innermost(iv, [t if t is not None else s
                               for (s, _, _), t in zip(device, launched)])
@@ -170,19 +175,20 @@ def program_read(events, spans, t0: int, t1: int) -> dict:
                  if first.get(b) is not None else "unlaunched")
         gaps[label][0] += 1
         gaps[label][1] += b - a
-    n_unet = len(of["unet"])
+    n_unet = len(of[call])
     unet_busy_s = sum(e - s for s, e in T._union(unet_ops)) / 1e9
-    return dict(
-        n_unet=n_unet, n_attn_self=len(of["attn_self"]),
-        busy_s=sum(e - s for s, e in busy) / 1e9, unet_busy_s=unet_busy_s,
-        unet_ops=len(unet_ops), attn_self_s=attn_ns / 1e9,
-        unet_device_ms=1e3 * unet_busy_s / n_unet if n_unet else None,
-        unet_launches=len(unet_ops) / n_unet if n_unet else None,
-        n_device_ops=len(device), n_unlaunched=unlaunched,
-        device_s_by_span=[[k, v / 1e9] for k, v in sorted(
+    return {
+        f"n_{call}": n_unet, f"n_{attn}": len(of[attn]),
+        "busy_s": sum(e - s for s, e in busy) / 1e9,
+        f"{call}_busy_s": unet_busy_s, f"{call}_ops": len(unet_ops),
+        f"{attn}_s": attn_ns / 1e9,
+        f"{call}_device_ms": 1e3 * unet_busy_s / n_unet if n_unet else None,
+        f"{call}_launches": len(unet_ops) / n_unet if n_unet else None,
+        "n_device_ops": len(device), "n_unlaunched": unlaunched,
+        "device_s_by_span": [[k, v / 1e9] for k, v in sorted(
             by_span.items(), key=lambda x: -x[1])[:12]],
-        idle_gaps=[[f"{k} ({n} gaps)", v / 1e9] for k, (n, v) in sorted(
-            gaps.items(), key=lambda x: -x[1][1])[:12]])
+        "idle_gaps": [[f"{k} ({n} gaps)", v / 1e9] for k, (n, v) in sorted(
+            gaps.items(), key=lambda x: -x[1][1])[:12]]}
 
 
 # --------------------------------------------------------------------- run
@@ -197,19 +203,20 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     import torch
 
-    from benchmark import flops as F
     from benchmark import harness as H
     from benchmark import trace as T
-    from benchmark.reference.check import sample_inputs
-    from benchmark.weights import derive, draw_state
+    from benchmark.weights import derive
     from rich_text_to_image_tpu_torch.cli.sample import run_sample
     from rich_text_to_image_tpu_torch.utils import tracing
 
     cell = H.load_cell(args.workload)
     cfg, traffic = cell["cfg"], cell["traffic"]
+    fam = H.family(cfg)
+    # the program's spans of one denoiser call and of its attention
+    call, attn = getattr(fam, "PROGRAM_SPANS", ("unet", "attn_self"))
     dev = torch.device("cuda", 0)
-    state = draw_state(cfg, args.seed, dev)
-    model = H.build_model(cfg, state, dev)
+    state = fam.draw_state(cfg, args.seed, dev)
+    model = fam.build_model(cfg, state, dev)
     del state
     cargs = H.cli_args(cfg, traffic)
     steps = cfg["pipeline"]["steps"]
@@ -251,7 +258,7 @@ def main(argv=None) -> int:
                 merged["counters"].setdefault(k, {})
                 merged["counters"][k][kk] = merged["counters"][k].get(
                     kk, 0) + c
-    win = window_read(merged)
+    win = window_read(merged, call)
     share = replay_share(merged["counters"])
     del merged, reports
     gib = float(1 << 30)
@@ -262,7 +269,7 @@ def main(argv=None) -> int:
         + json.dumps(memory))
 
     # ---- one sample profiled, the program's spans laid on it
-    hooks = T.Spans(model)
+    hooks = fam.spans(model)
     clock = {}
 
     def profiled_sample():
@@ -283,22 +290,22 @@ def main(argv=None) -> int:
                 torch.autograd.DeviceType.CUDA):
             t0, t1 = ev.start_ns(), ev.start_ns() + ev.duration_ns()
     old = T.read(events, t0, t1)
-    new = program_read(events, rep["spans"], t0, t1)
+    new = program_read(events, rep["spans"], t0, t1, call, attn)
     del events
     root = next(s for s in rep["spans"] if s["name"] == "sample")
-    inp = sample_inputs(traffic)
-    bound = F.attn_bound_seconds(cfg, traffic, inp)
+    bound = fam.work(cfg, traffic)[1]
     out = dict(
         workload=args.workload, seed=args.seed,
         device=torch.cuda.get_device_name(dev),
         power_limit=H.hardware().get("power.limit"),
         images_per_min_off=rates["off"], images_per_min_on=rates["on"],
         on_over_off=ratios, on_over_off_median=statistics.median(ratios),
-        unet_host_ms=win["unet_host_ms"], unet_device_ms=new["unet_device_ms"],
-        unet_launches=new["unet_launches"], decode_ms=win["decode_ms"],
-        unet_graph_replay_share=share, **memory,
-        attn_self_roofline=(100.0 * bound / new["attn_self_s"]
-                            if new["attn_self_s"] > 0 else None),
+        **{f"{call}_host_ms": win[f"{call}_host_ms"],
+           f"{call}_device_ms": new[f"{call}_device_ms"],
+           f"{call}_launches": new[f"{call}_launches"],
+           f"{attn}_roofline": (100.0 * bound / new[f"{attn}_s"]
+                                if new[f"{attn}_s"] > 0 else None)},
+        decode_ms=win["decode_ms"], unet_graph_replay_share=share, **memory,
         attn_roofline=(100.0 * bound / old["attn_core_s"]
                        if old["attn_core_s"] > 0 else None),
         window=win,

@@ -78,7 +78,7 @@ def _waves(b, h, s, block_m):
 def test_attention_tile_over_the_paths_shapes(b, h, s, d):
     block_m, block_k = A._fwd_tile(b, h, s, d)
     dp = (48 if d <= 48 else 64 if d <= 64 else 80 if d <= 80
-          else 160)  # RTT_DISPATCH
+          else 128 if d <= 128 else 160)  # RTT_DISPATCH
     assert block_k == _built_keys(dp, block_m)  # a pair that is built
     cost = {m: _waves(b, h, s, m) * c for m, c in A._WAVE_COST.items()
             if _built_keys(dp, m) is not None}
@@ -120,6 +120,21 @@ def test_attention_tile_at_the_sdxl_shapes():
     assert A._fwd_tile(2, 20, 1024, 64) == (192, 64)
     assert A._fwd_tile(2, 20, 1000, 64) == (192, 64)
     assert A._pavg_tile(2, 1024, 1024, 64) == 128
+
+
+def test_attention_tile_at_the_flux_shapes():
+    """FLUX.1's head dim 128 runs at its own instantiation (two 128-byte
+    swizzle rows, no padding), with one or two warpgroups of 64 keys; the
+    capture's second kernel one warpgroup, as above head dim 80. At the
+    joint attention's [1 / 2, 24, 4608, 128] the 128-row CTA (chip_smoke's
+    kernel lines, PERF.md)."""
+    assert A._padded(128) == 128 and A._padded(120) == 128
+    assert A._padded(136) == 160
+    assert A._FWD_TILES[128] == {64: 64, 128: 64}
+    assert A._fwd_tile(1, 24, 4608, 128) == (128, 64)
+    assert A._fwd_tile(2, 24, 4608, 128) == (128, 64)
+    assert A._pavg_tile(1, 4608, 4608, 128) == 64
+    assert A._bucket(4608, 4608, 128) == "full"
 
 
 def test_attention_tile_at_the_long_rows():
