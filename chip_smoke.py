@@ -15,7 +15,11 @@ is no CUDA device or the port's package is not beside it. Phases, in order:
      ones, with its time, the plain version's, the least time the card
      could take, and a library call's as a yardstick
      (``scaled_dot_product_attention``, ``F.conv2d``); then the host time
-     a launch of the attention and convolution wrappers;
+     a launch of the attention and convolution wrappers; FLUX.1's q/k
+     prologue kernel against the eager chain and against the same chain
+     in the kernel's order of the sum of squares, and ``flux-blocks:``
+     (one double and one single FLUX.1 block at full width, the prologue
+     through the kernel against its plain version);
   4. UNet: one full-width SD-1.5 CFG forward (bfloat16, random weights, 64^2
      latent) with capture of the five 32^2 layers, through the kernels and
      again with the plain attention, compared;
@@ -93,7 +97,11 @@ is no CUDA device or the port's package is not beside it. Phases, in order:
      and ``fixture-train:`` (the port's trainer, 1500 VAE + 4000 UNet
      steps at batch 64, then the fixture gates and the exact evaluation on
      the fresh pair); neither launches a hand-written kernel.
- 19. the throughput program, last: ``bench:`` (``rich_text_to_image_tpu_
+ 19. FLUX.1-dev, after the SDXL paths: ``flux:`` (a full-width FLUX.1-dev
+     pipeline drawn on the card, the CLI flow with ``--model FLUX`` at
+     1024^2 on a footnote span, 4 flow steps: the q/k prologue kernel
+     launched 57 times a transformer call, the plain version never).
+ 20. the throughput program, last: ``bench:`` (``rich_text_to_image_tpu_
      torch/bench.py``'s ``_run`` for SD-1.5 at 512^2 and SDXL at 1024^2,
      turbo then exact, 50 steps uncut, each model built by the CLI's
      ``build_model``: a warm-up and the best of 3 or 2 timed runs, images
@@ -145,6 +153,15 @@ RICH_TEXT = json.dumps({"ops": [
     {"insert": " in the background."},
 ]})
 REGIONS = 2  # R: the footnote span and the coloured span get region prompts
+# RICH_TEXT's footnote span alone, the benchmark's footnote traffic: the
+# FLUX.1 path refuses colour and size spans
+FLUX_TEXT = json.dumps({"ops": [
+    {"insert": "A close-up 4k dslr photo of a "},
+    {"attributes": {"link": "A cat wearing sunglasses and a bandana around "
+                            "its neck."}, "insert": "cat"},
+    {"insert": " riding a scooter. There are palm trees in the background."},
+]})
+FLUX_BLOCKS = 57  # FLUX.1-dev's 19 double and 38 single blocks
 
 STEPS_768 = 11  # 12 UNet calls a pass; the cross sums start at step 10
 STEPS_SHORT = 4  # the gate-on, injection, scheduler and turbo samples
@@ -232,6 +249,9 @@ KERNELS = {
     "K5_conv3x3": ("rich_text_to_image_tpu/ops/conv.py:50",
                    "rich_text_to_image_tpu_torch/csrc/conv.cu",
                    (2, 64, 64, 320, 320)),  # B, H, W, C, O
+    # no TPU kernel: the JAX package has no FLUX.1
+    "qk_norm_rope": (None, "rich_text_to_image_tpu_torch/csrc/qk_norm_rope.cu",
+                     (1, 512, 4096, 24, 128)),  # B, text, image, H, D
 }
 
 # every distinct (H = W, C, O) that a 3x3 stride-1 convolution of the SD-1.5
@@ -738,6 +758,265 @@ def conv_kernel_phase() -> tuple:
     return {"K5_conv3x3": row}, times
 
 
+# The kernel against the eager chain: the sum of squares is taken in
+# another order, which moves a row's float32 rsqrt by an ulp now and then;
+# where x * r then lies at a bf16 rounding boundary one normed element moves
+# by a bf16 step, and where RoPE's two terms of that element's pair nearly
+# cancel, the small output moves by many of its own steps (17-44 elements
+# in 28-57 M on an H100). So: all but a few millionths of the elements equal
+# to the bit, and every element equal to the bit against the same chain with
+# the kernel's order of the sum (``_qk_kernel_order``).
+QK_MIN_IDENTICAL = 0.99999  # share of bf16 elements equal to the eager ones
+QK_MAX_APART = 1e-5  # share of elements more than one bf16 step from them
+QK_FLUX_HEADS = (24, 128)  # FLUX.1-dev's heads and head dim
+
+
+def _qk_inputs(b, sizes, seed, heads=QK_FLUX_HEADS):
+    """(parts, cos, sin) of the joint attention's q/k prologue: a source
+    (q, k, q weight, k weight) of each of ``sizes`` tokens, q and k [B, n,
+    H, D] bf16 as the projections leave them (unit-normal times 3), the
+    norms' weights 1 + 0.3 N(0, 1) in bf16; FLUX.1's RoPE tables over the
+    text tokens and a square image grid (one source: the same tables)."""
+    import torch
+
+    from rich_text_to_image_tpu_torch.models import flux as PF
+
+    h, d = heads
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bf = torch.bfloat16
+    parts = []
+    for n in sizes:
+        q, k = (3 * torch.randn((b, n, h, d), generator=g, device="cuda")
+                for _ in "qk")
+        wq, wk = (1 + 0.3 * torch.randn((d,), generator=g, device="cuda")
+                  for _ in "qk")
+        parts.append(tuple(t.to(bf) for t in (q, k, wq, wk)))
+    txt = sizes[0] if len(sizes) == 2 else 512
+    side = int(round((sum(sizes) - txt) ** 0.5))
+    cos, sin = PF._rope_host((16, 56, 56), txt, side, side)
+    return parts, torch.from_numpy(cos).cuda(), torch.from_numpy(sin).cuda()
+
+
+def _bf16_steps(a, b):
+    """|a - b| in bf16 steps, element-wise: the sign-magnitude bit patterns
+    laid on one ordered line (+0 and -0 at the same place)."""
+    import torch
+
+    def line(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (line(a) - line(b)).abs()
+
+
+def _qk_kernel_order(parts, cos, sin, eps):
+    """``qk_norm_rope_plain`` with the sum of squares in the kernel's order:
+    16 threads a head row, each summing the squares of its 8 elements left
+    to right, then a butterfly over the 16 (``xor`` 8, 4, 2, 1); every
+    other step the eager chain's own."""
+    import torch
+
+    from rich_text_to_image_tpu_torch.ops import qk_norm_rope as QR
+
+    def norm(x, w):
+        x32 = x.float()
+        sq = (x32 * x32).unflatten(-1, (16, -1))
+        p = sq[..., 0]
+        for i in range(1, sq.shape[-1]):
+            p = p + sq[..., i]
+        lanes = torch.arange(16, device=x.device)
+        for off in (8, 4, 2, 1):
+            p = p + p[..., lanes ^ off]
+        r = torch.rsqrt(p[..., :1] * (1.0 / x.shape[-1]) + eps)
+        return (x32 * r).to(w.dtype) * w
+
+    q = torch.cat([norm(q, wq) for q, _, wq, _ in parts], dim=1)
+    k = torch.cat([norm(k, wk) for _, k, _, wk in parts], dim=1)
+    return QR.apply_rope(q, cos, sin), QR.apply_rope(k, cos, sin)
+
+
+def qk_norm_rope_kernel_phase() -> dict:
+    """The q/k prologue kernel against its plain version (the eager chain
+    it stands for) at FLUX.1's shapes: the plain pass's B = 1 and the rich
+    pass's 2, the double block's two sources (512 text rows, then 4,096
+    image rows, each with its weights) and the single block's one; at
+    least ``QK_MIN_IDENTICAL`` of the elements equal to the bit, at most
+    ``QK_MAX_APART`` more than one bf16 step apart, and all of them equal
+    to the bit against ``_qk_kernel_order``. Its time, the plain version's
+    and the byte bound; no one PyTorch call computes it (library_ms null).
+    Returns its row of the kernels line."""
+    import torch
+
+    from rich_text_to_image_tpu_torch.ops import qk_norm_rope as QR
+
+    row = None
+    h, d = QK_FLUX_HEADS
+    for b in (1, 2):
+        for sizes in ((512, 4096), (4608,)):
+            parts, cos, sin = _qk_inputs(b, sizes, seed=b + len(sizes))
+            QR.LAUNCHES = 0
+            got = QR.qk_norm_rope(parts, cos, sin)
+            want = QR.qk_norm_rope_plain(parts, cos, sin, 1e-6)
+            torch.cuda.synchronize()
+            if QR.LAUNCHES != 1:
+                raise AssertionError("qk_norm_rope did not launch its kernel")
+            ordered = _qk_kernel_order(parts, cos, sin, 1e-6)
+            steps = torch.cat([_bf16_steps(g, w).flatten()
+                               for g, w in zip(got, want)])
+            same = float((steps == 0).float().mean())
+            worst = int(steps.max())
+            apart = int((steps > 1).sum())
+            off_order = sum(int((g != w).sum()) for g, w in zip(got, ordered))
+            s = sum(sizes)
+            ms = _time_ms(lambda: QR.qk_norm_rope(parts, cos, sin), 20,
+                          plug=True)
+            plain_ms = _time_ms(
+                lambda: QR.qk_norm_rope_plain(parts, cos, sin, 1e-6), 3,
+                plug=True)
+            bound, bound_by, _ = _bound(0.0, 4.0 * b * s * h * d * 2
+                                        + 2.0 * s * d * 4)
+            form = "double" if len(sizes) == 2 else "single"
+            line = (f"kernel qk_norm_rope B={b} {form} "
+                    f"{'+'.join(map(str, sizes))} tokens, {h} heads of {d}: "
+                    f"identical {same:.6f} (at least {QK_MIN_IDENTICAL}) "
+                    f"of {steps.numel()}, {apart} more than one bf16 step "
+                    f"apart (at most {QK_MAX_APART * steps.numel():.0f}), "
+                    f"the farthest {worst}; against the kernel's order of "
+                    f"the sum {off_order} differ (none) ms={ms:.4f} plain_ms="
+                    f"{plain_ms:.4f} bound_ms={bound:.4f} ({bound_by}) "
+                    f"x bound {ms / bound:.2f}")
+            print(line, flush=True)
+            if (same < QK_MIN_IDENTICAL or apart > QK_MAX_APART
+                    * steps.numel() or off_order):
+                raise AssertionError(f"qk_norm_rope disagrees with its plain "
+                                     f"version: {line}")
+            if (b, *sizes, h, d) == KERNELS["qk_norm_rope"][2]:
+                row = {
+                    "name": "qk_norm_rope", "route": "cuda",
+                    "source": KERNELS["qk_norm_rope"][1], "replaces": None,
+                    "launches": None, "identical_share": same,
+                    "max_bf16_steps": worst, "off_order": off_order,
+                    "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": bound_by,
+                    "library_ms": None, "shape": [b, *sizes, h, d]}
+    parts, cos, sin = _qk_inputs(1, (512, 4096), seed=5)
+    print("kernel qk_norm_rope wrapper host us a launch at B=1 double: "
+          f"{_host_us(lambda: QR.qk_norm_rope(parts, cos, sin)):.2f}",
+          flush=True)
+    return {"qk_norm_rope": row}
+
+
+def flux_blocks_phase() -> None:
+    """FLUX.1's transformer at its published widths cut to one double and
+    one single block, drawn on the card in bf16: one forward at B = 1 over
+    512 text and 4,096 image tokens with the q/k prologue through its
+    kernel (one launch a block, counted by the tracer as ``path=kernel``)
+    against the same forward with the prologue's plain version; the
+    outputs within ``OUT_RTOL`` of max|ref| (the bf16 chain after it
+    amplifies a last-bit difference). The sample's launches are counted by
+    ``flux_phase``."""
+    import dataclasses
+
+    import torch
+
+    from rich_text_to_image_tpu_torch import weights
+    from rich_text_to_image_tpu_torch.models import config as C
+    from rich_text_to_image_tpu_torch.models import flux as PF
+    from rich_text_to_image_tpu_torch.ops import qk_norm_rope as QR
+    from rich_text_to_image_tpu_torch.utils import tracing
+
+    cfg = dataclasses.replace(C.FLUX_DEV, num_layers=1, num_single_layers=1)
+    with torch.device("meta"):
+        net = PF.FluxTransformer2DModel(cfg)
+    net = weights.random_init_device(
+        net.to(dtype=torch.bfloat16).to_empty(device="cuda"), 3)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((1, 4096, cfg.in_channels), generator=g, device="cuda")
+    ctx = torch.randn((1, 512, cfg.joint_attention_dim), generator=g,
+                      device="cuda")
+    pooled = torch.randn((1, cfg.pooled_projection_dim), generator=g,
+                         device="cuda")
+    run = lambda: net(x, 0.7, ctx, pooled, 3.5, (64, 64))  # noqa: E731
+    QR.LAUNCHES = 0
+    tracing.report()  # what an earlier phase left
+    with torch.no_grad(), tracing.collect():
+        got = run()
+        counts = tracing.report()["counters"]["qk_norm_rope"]
+    launched = QR.LAUNCHES
+    orig = PF.qk_norm_rope
+    PF.qk_norm_rope = QR.qk_norm_rope_plain
+    try:
+        with torch.no_grad():
+            want = run()
+    finally:
+        PF.qk_norm_rope = orig
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ref_max = want.float().abs().max().item()
+    print(f"flux-blocks: 1 double + 1 single block at width "
+          f"{cfg.inner_dim}, B=1, 512 + 4096 tokens: qk_norm_rope launches "
+          f"{launched}, tracer {counts}; max|d out| {err:.3e} = "
+          f"{err / ref_max:.3e} of max|ref| {ref_max:.3f} (tol {OUT_RTOL})",
+          flush=True)
+    if launched != 2 or counts != {"path=kernel": 2}:
+        raise AssertionError(f"flux-blocks: {launched} launches, {counts}")
+    if not err <= OUT_RTOL * ref_max:
+        raise AssertionError("flux-blocks: the kernel's forward disagrees "
+                             "with the plain prologue's")
+    del net
+    torch.cuda.empty_cache()
+
+
+def flux_phase(out_dir: str, rows: dict) -> None:
+    """FLUX.1-dev at its published widths drawn on the card
+    (``RegionFlux.random_init``), then the port's CLI flow with ``--model
+    FLUX`` at 1024^2 on ``FLUX_TEXT``, ``STEPS_SHORT`` steps, the plain
+    pass capturing from step 1: the path of the benchmark's FLUX.1 cell.
+    The q/k prologue kernel launches once a block of every transformer
+    call, ``FLUX_BLOCKS`` times the tracer's ``dit_calls``, and the plain
+    version never; that count is the kernels line's ``launches``."""
+    import torch
+
+    from rich_text_to_image_tpu_torch.ops import qk_norm_rope as QR
+    from rich_text_to_image_tpu_torch.pipelines.region_flux import RegionFlux
+    from rich_text_to_image_tpu_torch.utils import tracing
+
+    t0 = time.time()
+    flux = RegionFlux.random_init(seed=0, device="cuda")
+    torch.cuda.synchronize()
+    tr = flux.transformer
+    blocks = len(tr.transformer_blocks) + len(tr.single_transformer_blocks)
+    print(f"init: full-width FLUX.1-dev pipeline ({blocks} blocks), random "
+          f"weights drawn on the card, {time.time() - t0:.1f} s", flush=True)
+    if blocks != FLUX_BLOCKS:
+        raise AssertionError(f"flux: {blocks} blocks, not {FLUX_BLOCKS}")
+    torch.cuda.reset_peak_memory_stats()
+    tracing.report()  # what an earlier phase left
+    QR.LAUNCHES = 0
+    with tracing.collect():
+        launches, _, _, _, _ = sample_phase(
+            "flux", flux, out_dir, 1024, STEPS_SHORT, ["--model", "FLUX"],
+            agg_start=1, text=FLUX_TEXT)
+        counters = tracing.report()["counters"]
+    peak = torch.cuda.max_memory_allocated()
+    calls = sum(counters["dit_calls"].values())
+    counted = counters.get("qk_norm_rope", {})
+    print(f"flux: {calls} transformer calls {counters['dit_calls']}, "
+          f"qk_norm_rope launches {QR.LAUNCHES} ({FLUX_BLOCKS} x {calls} = "
+          f"{FLUX_BLOCKS * calls}), tracer {counted}; attention "
+          f"{launches}; peak device memory {peak} bytes "
+          f"({peak / 2**30:.2f} GiB)", flush=True)
+    want = FLUX_BLOCKS * calls
+    if (calls != 2 * STEPS_SHORT or QR.LAUNCHES != want
+            or counted != {"path=kernel": want}):
+        raise AssertionError(f"flux: {QR.LAUNCHES} qk_norm_rope launches, "
+                             f"tracer {counted}, in {calls} transformer "
+                             f"calls")
+    rows["qk_norm_rope"]["launches"] = QR.LAUNCHES
+    del flux, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def unet_phase(pipe) -> float:
     """One full-width CFG forward with capture, kernels vs plain attention;
     returns the forward's ms without capture."""
@@ -795,12 +1074,14 @@ def _agg_start(pipe, step: int):
 
 
 def sample_phase(tag: str, pipe, out_dir: str, size: int, steps: int,
-                 extra=(), agg_start: int | None = None) -> tuple:
-    """The port's CLI flow at size x size; returns (launch counts of the
-    run, stage seconds, plain image, rich image, the share of the latent
-    that the token maps gave to the span regions). ``agg_start`` moves the
-    step from which the plain pass sums its cross-attention maps (10 by
-    default), so that a run of fewer steps still has maps to segment."""
+                 extra=(), agg_start: int | None = None,
+                 text: str = RICH_TEXT) -> tuple:
+    """The port's CLI flow at size x size on rich text ``text``; returns
+    (launch counts of the run, stage seconds, plain image, rich image, the
+    share of the latent that the token maps gave to the span regions).
+    ``agg_start`` moves the step from which the plain pass sums its
+    cross-attention maps (10 by default), so that a run of fewer steps
+    still has maps to segment."""
     import numpy as np
 
     from rich_text_to_image_tpu_torch.cli.sample import (check_args,
@@ -812,9 +1093,9 @@ def sample_phase(tag: str, pipe, out_dir: str, size: int, steps: int,
     args = make_parser().parse_args(
         ["--run_dir", out_dir, "--sample_steps", str(steps), "--seed", "6",
          "--height", str(size), "--width", str(size),
-         "--rich_text_json", RICH_TEXT, *extra])
+         "--rich_text_json", text, *extra])
     check_args(args)
-    param = {"text_input": json.loads(RICH_TEXT), "height": size,
+    param = {"text_input": json.loads(text), "height": size,
              "width": size, "guidance_weight": args.guidance_weight,
              "steps": steps, "noise_index": args.seed, "negative_prompt": ""}
     A.reset_launches()
@@ -1937,11 +2218,14 @@ def grad_guard_phase() -> None:
 
     from rich_text_to_image_tpu_torch.ops import attention as A
     from rich_text_to_image_tpu_torch.ops import conv as CV
+    from rich_text_to_image_tpu_torch.ops import qk_norm_rope as QR
 
     q, k, v = (t.detach().requires_grad_() for t in _qkv(2, 8, 1024, 80, 7))
     lse = torch.zeros((2, 8, 1024), device="cuda")
     x, w, bias = _conv_inputs(2, 64, 64, 320, 320, 7)
     x = x.detach().requires_grad_()
+    parts, cos, sin = _qk_inputs(1, (512, 4096), seed=7)
+    parts[0] = (parts[0][0].detach().requires_grad_(), *parts[0][1:])
     calls = {
         "flash_attention": lambda: A.flash_attention(q, k, v),
         "flash_attention_avg_probs":
@@ -1949,9 +2233,11 @@ def grad_guard_phase() -> None:
         "flash_attention_lse": lambda: A.flash_attention_lse(q, k, v),
         "avg_probs_from_lse": lambda: A.avg_probs_from_lse(q, k, lse),
         "conv3x3": lambda: CV.conv3x3(x, w, bias),
+        "qk_norm_rope": lambda: QR.qk_norm_rope(parts, cos, sin),
     }
     A.reset_launches()
     CV.reset_launches()
+    QR.LAUNCHES = 0
     for name, fn in calls.items():
         try:
             fn()
@@ -1962,19 +2248,19 @@ def grad_guard_phase() -> None:
         else:
             raise AssertionError(f"grad-guard: {name} returned under "
                                  "autograd, with no gradient to give")
-    launched = {**A.LAUNCHES, **CV.LAUNCHES}
+    launched = {**A.LAUNCHES, **CV.LAUNCHES, "qk_norm_rope": QR.LAUNCHES}
     if any(launched.values()):
         raise AssertionError(f"grad-guard: launched {launched}")
     with torch.no_grad():
         for fn in calls.values():
             fn()
     torch.cuda.synchronize()
-    launched = {**A.LAUNCHES, **CV.LAUNCHES}
+    launched = {**A.LAUNCHES, **CV.LAUNCHES, "qk_norm_rope": QR.LAUNCHES}
     print(f"grad-guard: {len(calls)} wrappers raise under autograd "
           f"({', '.join(calls)}) and launch nothing; under no_grad they "
           f"launch {launched}", flush=True)
     if launched != {"full": 0, "full_t": 1, "avgp": 2, "stream": 0,
-                    "conv3x3": 1}:
+                    "conv3x3": 1, "qk_norm_rope": 1}:
         raise AssertionError(f"grad-guard: under no_grad {launched}")
 
 
@@ -3064,6 +3350,8 @@ def main(kernels_only: bool = False) -> int:
     rows = attention_kernel_phase()
     conv_row, conv_times = conv_kernel_phase()
     rows.update(conv_row)
+    rows.update(qk_norm_rope_kernel_phase())
+    flux_blocks_phase()
     grad_guard_phase()
     if kernels_only:
         print(_smi(), flush=True)
@@ -3249,11 +3537,13 @@ def main(kernels_only: bool = False) -> int:
             raise AssertionError(f"demo-xl: no launch at {entry['shape']}")
     sdxl_breakdown_phase(xl)
 
-    # the throughput program at 50 steps: the SDXL pipeline gives its
-    # memory back first, and the program builds its own models
+    # FLUX.1-dev at 1024^2, then the throughput program at 50 steps: the
+    # SDXL pipeline gives its memory back first, and the program builds its
+    # own models
     del xl
     gc.collect()
     torch.cuda.empty_cache()
+    flux_phase(os.path.join(out, "flux"), rows)
     bench_phase(rows)
 
     print(_smi(), flush=True)

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_attention, flash_attention_avg_probs
+from ..ops.qk_norm_rope import qk_norm_rope
 from ..utils import tracing
 from .config import FluxConfig
 
@@ -98,28 +99,15 @@ def rope_tables(cfg: FluxConfig, txt: int, gh: int, gw: int, device):
                         torch.device(device))
 
 
-def apply_rope(x: torch.Tensor, cos, sin) -> torch.Tensor:
-    """diffusers' ``apply_rotary_emb`` (interleaved pairs) on x [B, S, H,
-    D], in float32, back in x's dtype."""
-    xr, xi = x.float().unflatten(-1, (-1, 2)).unbind(-1)
-    rot = torch.stack([-xi, xr], dim=-1).flatten(-2)
-    c, s = cos[None, :, None], sin[None, :, None]
-    return (x.float() * c + rot * s).to(x.dtype)
-
-
 class RMSNorm(nn.Module):
-    """diffusers' ``RMSNorm`` with a weight: float32 statistics, cast to the
-    weight's dtype before the scale."""
+    """The weight and eps of diffusers' ``RMSNorm`` on q or k: the joint
+    attention hands both to ``qk_norm_rope``, which applies the norm
+    (``ops/qk_norm_rope.rms_norm``)."""
 
     def __init__(self, d: int, eps: float = _EPS):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(d))
         self.eps = eps
-
-    def forward(self, x):
-        x32 = x.float()
-        x32 = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + self.eps)
-        return x32.to(self.weight.dtype) * self.weight
 
 
 def _layer_norm(x):
@@ -160,9 +148,10 @@ class JointCapture:
 
 class AttentionCore(nn.Module):
     """softmax(Q K^T / sqrt d) V over the joint sequence: q, k, v [B, S, H,
-    D] after RoPE -> [B, S, H D]; with a capture, through the capture
-    kernels, whose head average goes into it. A module of its own (no
-    parameters) so that a span can be hooked around the attention alone."""
+    D], q and k normed and after RoPE -> [B, S, H D]; with a capture,
+    through the capture kernels, whose head average goes into it. A module
+    of its own (no parameters) so that a span can be hooked around the
+    attention alone."""
 
     def forward(self, q, k, v, capture: JointCapture | None = None):
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))
@@ -239,7 +228,9 @@ class JointAttention(nn.Module):
     (``add_*_proj``), each with RMSNorm on q and k, joint over [text ;
     image] with RoPE, split back into ``to_out`` / ``to_add_out``. With
     ``context`` None it is the single block's (``pre_only``: no output
-    projection)."""
+    projection). The norms, RoPE and the joint rows of q and k are one
+    call of ``ops/qk_norm_rope.qk_norm_rope`` (one kernel launch on the
+    card); v's rows are concatenated."""
 
     def __init__(self, cfg: FluxConfig, dual: bool):
         super().__init__()
@@ -255,23 +246,25 @@ class JointAttention(nn.Module):
             self.to_add_out = nn.Linear(d, d)
         self.core = AttentionCore()
 
-    def _qkv(self, x, q, k, v, nq, nk):
-        B, S, _ = x.shape
-        split = lambda t: t.view(B, S, self.heads, -1)  # noqa: E731
-        return nq(split(q(x))), nk(split(k(x))), split(v(x))
+    def _heads(self, t):
+        return t.view(*t.shape[:2], self.heads, -1)
+
+    def _source(self, x, q, k, nq, nk):
+        """(q, k, q's norm weight, k's) of one stream, q and k [B, S, H,
+        D] as the projections leave them."""
+        return self._heads(q(x)), self._heads(k(x)), nq.weight, nk.weight
 
     def forward(self, x, context, rope, capture=None):
-        q, k, v = self._qkv(x, self.to_q, self.to_k, self.to_v, self.norm_q,
-                            self.norm_k)
+        parts = [self._source(x, self.to_q, self.to_k, self.norm_q,
+                              self.norm_k)]
+        v = self._heads(self.to_v(x))
         if context is not None:
-            cq, ck, cv = self._qkv(context, self.add_q_proj, self.add_k_proj,
-                                   self.add_v_proj, self.norm_added_q,
-                                   self.norm_added_k)
-            q, k, v = (torch.cat([a, b], dim=1)
-                       for a, b in ((cq, q), (ck, k), (cv, v)))
-        cos, sin = rope
-        o = self.core(apply_rope(q, cos, sin), apply_rope(k, cos, sin), v,
-                      capture)
+            parts.insert(0, self._source(context, self.add_q_proj,
+                                         self.add_k_proj, self.norm_added_q,
+                                         self.norm_added_k))
+            v = torch.cat([self._heads(self.add_v_proj(context)), v], dim=1)
+        q, k = qk_norm_rope(parts, *rope, eps=self.norm_q.eps)
+        o = self.core(q, k, v, capture)
         if context is None:
             return o
         T = context.shape[1]

@@ -21,7 +21,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("attention.cu", "conv.cu")
+SOURCES = ("attention.cu", "conv.cu", "qk_norm_rope.cu")
 HEADERS = ("common.cuh", "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -93,7 +93,8 @@ class _Kernels:
         strides = [ctypes.c_longlong] * 3
         attn = ctypes.CDLL(paths["attention.cu"])
         conv = ctypes.CDLL(paths["conv.cu"])
-        self._libs = (attn, conv)  # keep the handles alive
+        qk = ctypes.CDLL(paths["qk_norm_rope.cu"])
+        self._libs = (attn, conv, qk)  # keep the handles alive
         self.rtt_attn_fwd = attn.rtt_attn_fwd
         self.rtt_attn_fwd.argtypes = (
             [ptr] * 5 + [i32] * 5 + strides * 4 + [f32, i32, i32, ptr])
@@ -102,8 +103,11 @@ class _Kernels:
             [ptr] * 4 + [i32] * 5 + strides * 2 + [f32, i32, ptr])
         self.rtt_conv3x3_fwd = conv.rtt_conv3x3_fwd
         self.rtt_conv3x3_fwd.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
+        self.rtt_qk_norm_rope = qk.rtt_qk_norm_rope
+        self.rtt_qk_norm_rope.argtypes = (
+            [ptr] * 8 + [i32] * 4 + [ptr] * 2 + [f32] + [ptr] * 3)
         for fn in (self.rtt_attn_fwd, self.rtt_attn_pavg,
-                   self.rtt_conv3x3_fwd):
+                   self.rtt_conv3x3_fwd, self.rtt_qk_norm_rope):
             fn.restype = i32
 
 

@@ -1,10 +1,10 @@
 #!/bin/sh
 # Mutant check of the PyTorch/CUDA port's kernel comparisons: shows that
 # `chip_smoke.py --kernels-only` catches a kernel that forgets a mask, a
-# border or a tap. Each mutant is a one-line edit of a CUDA source, made in a
-# throw-away copy of the port (under $TMPDIR, removed on exit); the copy's
-# kernel phase must then fail, and the line at which it failed is printed
-# with the error it measured against the 2e-2 limit.
+# border, a tap, a sign or a rounding. Each mutant is a one-line edit of a
+# CUDA source, made in a throw-away copy of the port (under $TMPDIR,
+# removed on exit); the copy's kernel phase must then fail, and the line at
+# which it failed is printed with the error it measured against its limit.
 #
 #     sh scripts/port_kernel_mutants.sh [mutant ...]
 #
@@ -25,7 +25,9 @@ lse_without_log2l|attention.cu|s/lb\[r0\] = m\[0\] + log2f(l0);/lb[r0] = m[0];/
 conv_columns_wrap|conv.cu|s/ww >= 0 \&\& ww < W;/a_off[i] + shift >= 0 \&\& a_off[i] + shift < M * C;/
 conv_taps_mirrored|conv.cu|s/dx = tap % 3 - 1;/dx = 1 - tap % 3;/
 conv_swizzle|conv.cu|s/swz_offset((t >> 3) + 32 \* i, a_chunk)/swz_offset((t >> 3) + 32 * i, a_chunk ^ 1)/
-attn_pv_d64_overwrites|attention.cu|s/wgmma_rs_n64<1>(o, a, dv, 1);/wgmma_rs_n64<1>(o, a, dv, 0);/'
+attn_pv_d64_overwrites|attention.cu|s/wgmma_rs_n64<1>(o, a, dv, 1);/wgmma_rs_n64<1>(o, a, dv, 0);/
+qk_rope_sign|qk_norm_rope.cu|s/__fmul_rn(-b, s\[2 \* i\])/__fmul_rn(b, s[2 * i])/
+qk_norm_unrounded|qk_norm_rope.cu|s/round_bf16(__fmul_rn(round_bf16(__fmul_rn(x\[i\], r)), w\[i\]))/round_bf16(__fmul_rn(__fmul_rn(x[i], r), w[i]))/'
 
 # attn_ragged_mask: attn_fwd_kernel scores the zero-filled keys past a
 #   ragged end instead of masking them (all three attention buckets and the
@@ -43,6 +45,11 @@ attn_pv_d64_overwrites|attention.cu|s/wgmma_rs_n64<1>(o, a, dv, 1);/wgmma_rs_n64
 #   place of their neighbour, so channels meet the wrong weights.
 # attn_pv_d64_overwrites: at head dim 64 (SDXL) each 16-key P.V product
 #   overwrites the output accumulator instead of adding to it.
+# qk_rope_sign: qk_norm_rope_kernel rotates each pair by the wrong sign of
+#   the angle (rot = (y[2i+1], y[2i])).
+# qk_norm_unrounded: the normed element is not rounded to bf16 before the
+#   weight's product, one rounding fewer than the eager chain (a last-bit
+#   change in about half the elements).
 
 want=${*:-$(printf '%s\n' "$mutants" | cut -d'|' -f1)}
 bad=0

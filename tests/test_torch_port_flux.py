@@ -14,10 +14,12 @@ whole sample the harness's own numbers at 1e-4 (a chain of 12 steps and a
 clustering between the passes).
 
 Beside them: the configuration file's published widths, the CLI's
-refusals for ``--model FLUX``, the span positions over T5's row, and the
-comparison seeing the faults it has to catch: RoPE dropped, the text and
+refusals for ``--model FLUX``, the span positions over T5's row, the
+comparison seeing the faults it has to catch (RoPE dropped, the text and
 image order swapped in the joint sequence, the VAE's shift factor left
-out.
+out), and the q/k prologue of the joint attention (``ops/qk_norm_rope``):
+its plain version against the eager chain it stands for, bit for bit, what
+its wrapper refuses, and its counter.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from rich_text_to_image_tpu_torch.cli.sample import (  # noqa: E402
     check_args, make_parser)
 from rich_text_to_image_tpu_torch.models import flux as PF  # noqa: E402
 from rich_text_to_image_tpu_torch.models.t5 import T5ByteTokenizer  # noqa: E402
+from rich_text_to_image_tpu_torch.ops import qk_norm_rope as QR  # noqa: E402
 from rich_text_to_image_tpu_torch.schedulers.flow_match import (  # noqa: E402
     FlowMatchEulerScheduler)
 from rich_text_to_image_tpu_torch.utils import richtext  # noqa: E402
@@ -170,7 +173,11 @@ def test_whole_sample_matches_the_reference():
 
 
 def _no_rope(monkeypatch):
-    monkeypatch.setattr(PF, "apply_rope", lambda x, cos, sin: x)
+    # the joint attention's q/k prologue with RoPE at angle 0
+    def no_rope(parts, cos, sin, eps):
+        return QR.qk_norm_rope_plain(parts, torch.ones_like(cos),
+                                     torch.zeros_like(sin), eps)
+    monkeypatch.setattr(PF, "qk_norm_rope", no_rope)
 
 
 def _swapped(monkeypatch):
@@ -181,15 +188,14 @@ def _swapped(monkeypatch):
             return orig(self, x, context, rope, capture)
         # [image ; text], read as [text ; image] by RoPE, the capture and
         # the split
-        q, k, v = self._qkv(x, self.to_q, self.to_k, self.to_v, self.norm_q,
-                            self.norm_k)
-        cq, ck, cv = self._qkv(context, self.add_q_proj, self.add_k_proj,
-                               self.add_v_proj, self.norm_added_q,
-                               self.norm_added_k)
-        q, k, v = (torch.cat([a, b], dim=1)
-                   for a, b in ((q, cq), (k, ck), (v, cv)))
-        o = self.core(PF.apply_rope(q, *rope), PF.apply_rope(k, *rope), v,
-                      capture)
+        parts = [self._source(x, self.to_q, self.to_k, self.norm_q,
+                              self.norm_k),
+                 self._source(context, self.add_q_proj, self.add_k_proj,
+                              self.norm_added_q, self.norm_added_k)]
+        v = torch.cat([self._heads(self.to_v(x)),
+                       self._heads(self.add_v_proj(context))], dim=1)
+        q, k = PF.qk_norm_rope(parts, *rope, eps=self.norm_q.eps)
+        o = self.core(q, k, v, capture)
         T = context.shape[1]
         return self.to_out[0](o[:, T:]), self.to_add_out(o[:, :T])
     monkeypatch.setattr(PF.JointAttention, "forward", forward)
@@ -212,6 +218,104 @@ def test_the_comparison_catches(monkeypatch, fault, caught_by):
     assert rc == 0 and not res["correct"]
     c = res["checks"][caught_by]
     assert c["value"] > c["limit"], res["checks"]
+
+
+def _eager_chain(parts, cos, sin, eps):
+    """The joint attention's q/k prologue as the eager model wrote it:
+    diffusers' ``RMSNorm`` on each q and k, the text and image rows
+    concatenated, then ``apply_rotary_emb``."""
+    def norm(x, w):
+        x32 = x.float()
+        x32 = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + eps)
+        return x32.to(w.dtype) * w
+
+    def rope(x):
+        xr, xi = x.float().unflatten(-1, (-1, 2)).unbind(-1)
+        rot = torch.stack([-xi, xr], dim=-1).flatten(-2)
+        c, s = cos[None, :, None], sin[None, :, None]
+        return (x.float() * c + rot * s).to(x.dtype)
+
+    q = torch.cat([norm(q, wq) for q, _, wq, _ in parts], dim=1)
+    k = torch.cat([norm(k, wk) for _, k, _, wk in parts], dim=1)
+    return rope(q), rope(k)
+
+
+def _qk_parts(sizes, dtype, heads=3, d=32):
+    """(q, k, q weight, k weight) a source of ``sizes`` tokens at batch 2,
+    the weights away from 1; FLUX.1's RoPE tables (axes [4, 14, 14]) over
+    12 text tokens and a 4 x 5 image grid."""
+    g = torch.Generator().manual_seed(sum(sizes) + len(sizes))
+    parts = []
+    for n in sizes:
+        q, k = (3 * torch.randn(2, n, heads, d, generator=g) for _ in "qk")
+        wq, wk = (1 + 0.3 * torch.randn(d, generator=g) for _ in "qk")
+        parts.append(tuple(t.to(dtype) for t in (q, k, wq, wk)))
+    cos, sin = PF._rope_host((4, 14, 14), 12, 4, 5)
+    return parts, torch.from_numpy(cos), torch.from_numpy(sin)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bf16"])
+@pytest.mark.parametrize("sizes", [(12, 20), (32,)], ids=["double", "single"])
+def test_qk_prologue_plain_is_the_eager_chain(dtype, sizes):
+    """``qk_norm_rope_plain`` (what the wrapper runs on the CPU, and what
+    the kernel is held to on the card) is the eager chain to the bit, in
+    the double block's form (text then image rows, each with its own
+    weights) and the single block's (one source)."""
+    parts, cos, sin = _qk_parts(sizes, dtype)
+    want = _eager_chain(parts, cos, sin, 1e-6)
+    for got in (QR.qk_norm_rope_plain(parts, cos, sin, 1e-6),
+                QR.qk_norm_rope(parts, cos, sin)):
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == (2, 32, 3, 32)
+            assert torch.equal(g, w)
+
+
+def _refused(what):
+    """Inputs on the ``meta`` device, which takes the kernel's branch as the
+    card does, right for the kernel but for ``what``."""
+    d = 64 if what == "head dim" else QR.HEAD_DIM
+    dtype = torch.float32 if what == "dtype" else torch.bfloat16
+    q, k = (torch.empty(1, 8, 2, d, device="meta", dtype=dtype)
+            for _ in "qk")
+    w = torch.empty(d, device="meta", dtype=dtype)
+    q.requires_grad_(what == "gradient")
+    tab = torch.empty(8, d, device="meta")
+    return [(q, k, w, w)], tab, tab
+
+
+@pytest.mark.parametrize("what,error,match", [
+    ("dtype", TypeError, "takes bfloat16"),
+    ("head dim", ValueError, "head dim 128, got 64"),
+    ("gradient", RuntimeError, "no backward")])
+def test_qk_prologue_wrapper_refuses(what, error, match):
+    """Off the CPU the wrapper launches the kernel or raises: on another
+    dtype than bf16, another head dim than 128, and an input that requires
+    a gradient under grad mode; it launches nothing then."""
+    before = QR.LAUNCHES
+    with pytest.raises(error, match=match):
+        QR.qk_norm_rope(*_refused(what))
+    assert QR.LAUNCHES == before
+
+
+def test_qk_prologue_counts_one_a_joint_attention(nets):
+    """One ``qk_norm_rope`` count a block of a transformer call (FLUX.1's
+    19 + 38 = 57), on the plain path here, with no kernel launch."""
+    from rich_text_to_image_tpu_torch.utils import tracing
+
+    cfg, _, pipe = nets
+    t = cfg["transformer"]
+    g = torch.Generator().manual_seed(5)
+    before = QR.LAUNCHES
+    with torch.no_grad(), tracing.collect():
+        pipe.transformer(torch.randn(2, 16, 64, generator=g), 0.5,
+                         torch.randn(2, 8, 32, generator=g),
+                         torch.randn(2, 32, generator=g), 3.5, (4, 4))
+        rep = tracing.report()
+    blocks = t["num_layers"] + t["num_single_layers"]
+    assert blocks == 3
+    assert rep["counters"]["qk_norm_rope"] == {"path=plain": blocks}
+    assert QR.LAUNCHES == before
 
 
 def test_the_published_widths():

@@ -16,6 +16,7 @@ import torch
 from rich_text_to_image_tpu_torch.models import unet as T
 from rich_text_to_image_tpu_torch.ops import attention as A
 from rich_text_to_image_tpu_torch.ops import conv as CV
+from rich_text_to_image_tpu_torch.ops import qk_norm_rope as QR
 from torch_port_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
@@ -28,6 +29,10 @@ def _inputs(device, grad):
         grad)
     w = torch.randn((3, 3, 64, 64), dtype=bf, device=device)
     b = torch.randn((64,), dtype=bf, device=device)
+    k6 = torch.randn((1, 6, 2, 128), dtype=bf, device=device)
+    nw = torch.ones((128,), dtype=bf, device=device)
+    tab = torch.ones((6, 128), device=device)
+    q6 = lambda: q.flatten()[:k6.numel()].view(k6.shape)  # noqa: E731
     return {
         "flash_attention": lambda: A.flash_attention(q, k, v),
         "flash_attention_avg_probs":
@@ -35,11 +40,14 @@ def _inputs(device, grad):
         "flash_attention_lse": lambda: A.flash_attention_lse(q, k, v),
         "avg_probs_from_lse": lambda: A.avg_probs_from_lse(q, k, lse),
         "conv3x3": lambda: CV.conv3x3(x, w, b),
+        "qk_norm_rope":
+            lambda: QR.qk_norm_rope([(q6(), k6, nw, nw)], tab, tab),
     }, (q, x)
 
 
 WRAPPERS = ["flash_attention", "flash_attention_avg_probs",
-            "flash_attention_lse", "avg_probs_from_lse", "conv3x3"]
+            "flash_attention_lse", "avg_probs_from_lse", "conv3x3",
+            "qk_norm_rope"]
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
@@ -50,6 +58,7 @@ def test_wrapper_raises_under_autograd_off_the_cpu(name):
     with pytest.raises(RuntimeError, match=f"^{name}: .*no backward"):
         calls[name]()
     assert not any(A.LAUNCHES.values()) and not CV.LAUNCHES["conv3x3"]
+    assert QR.LAUNCHES == 0
 
 
 @pytest.mark.parametrize("name", WRAPPERS)
